@@ -1,0 +1,24 @@
+"""phaserotate_tpu_torch — the PyTorch/CUDA port of phaserotate_tpu.
+
+Arbitrary-angle phase rotation of audio and the minimum-peak angle
+analyzer of x42/phaserotate.lv2, on PyTorch tensors.  On a CUDA device the
+hot loops run in hand-written Hopper kernels (``csrc/``, built with
+``nvcc`` at first use); on the CPU the same functions run their plain
+PyTorch versions.  The JAX package ``phaserotate_tpu`` is the reference
+this port is tested against; nothing here imports it or JAX.
+
+Public surface (the analyze -> apply main path):
+
+* :func:`rotate` — rotate(audio, degrees, method="spectral"|"fir").
+* :func:`rotate_fir` — the plugin's windowed-FIR rotation.
+* :func:`find_min_peak_angle` — the CLI's coarse-to-fine min-peak search.
+* :func:`apply_angles` — the CLI's offline apply path.
+"""
+
+from .ops import rotate, rotate_fir
+from .search import apply_angles, find_min_peak_angle
+
+__version__ = "0.1.0"
+
+__all__ = ["apply_angles", "find_min_peak_angle", "rotate", "rotate_fir",
+           "__version__"]

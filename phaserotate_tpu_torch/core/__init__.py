@@ -1,0 +1,47 @@
+"""Core DSP math: FIR design, sizing tables, angle conventions."""
+
+from .angles import (
+    MAXSAMPLE,
+    SUBSAMPLE,
+    all_angle_cos_sin,
+    angle_units_from_degrees,
+    degrees_to_turns,
+    sin_cos_turns,
+    sincos_lut,
+    turns_to_radians,
+)
+from .fir import (
+    design_hilbert_fir,
+    offline_fir_spectrum,
+    partition_fir_spectra,
+)
+from .sizes import (
+    MAX_BLKSIZ,
+    MIN_BLKSIZ,
+    OfflineGeometry,
+    StreamGeometry,
+    default_blksiz,
+    offline_geometry,
+    stream_geometry_for_rate,
+)
+
+__all__ = [
+    "MAXSAMPLE",
+    "SUBSAMPLE",
+    "MAX_BLKSIZ",
+    "MIN_BLKSIZ",
+    "OfflineGeometry",
+    "StreamGeometry",
+    "all_angle_cos_sin",
+    "angle_units_from_degrees",
+    "default_blksiz",
+    "degrees_to_turns",
+    "design_hilbert_fir",
+    "offline_fir_spectrum",
+    "offline_geometry",
+    "partition_fir_spectra",
+    "sin_cos_turns",
+    "sincos_lut",
+    "stream_geometry_for_rate",
+    "turns_to_radians",
+]

@@ -1,0 +1,117 @@
+"""Build, load and count the port's CUDA kernels.
+
+The sources under ``phaserotate_tpu_torch/csrc/`` are compiled at first use
+with ``nvcc`` into one shared library with a plain C interface and loaded
+with ``ctypes``.  The library's file name carries a hash of the sources and
+flags, so an edited kernel is rebuilt and a built one is reused by every
+later process of the same checkout.  A failed build raises with the
+compiler's output; nothing falls back.
+
+``launches`` counts, per wrapper, the kernel launches made on CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+
+__all__ = ["BUILD_DIR", "build", "check", "count_launch", "launches", "lib",
+           "reset_launches"]
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_SOURCES = ("rotate_peak.cu", "stream_conv.cu")
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "phaserotate_tpu_torch"
+# no --use_fast_math: sincosf must stay full precision
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+launches = {"rotate_peak_sweep": 0, "hilbert_small": 0, "rotate_small": 0}
+
+_lib = None
+_lock = threading.Lock()
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    # b0, b1, row stride b0, row stride b1, cos_sin, out, rows, n, A,
+    # tile_len, stream
+    "prt_rotate_peak_sweep": (_P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                              _P, _P, ctypes.c_int, ctypes.c_longlong,
+                              ctypes.c_int, ctypes.c_int, _P),
+    # frames, fir parts, twiddles, angle params (or NULL), spectrum
+    # scratch, out, batch, n_frames, n_segm, dry delay in frames, stream
+    "prt_stream_conv": (_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_int, _P),
+}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def count_launch(name: str) -> None:
+    launches[name] += 1
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found: set CUDA_HOME to the "
+                           "directory that holds bin/nvcc")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in _SOURCES:
+        h.update(name.encode())
+        h.update((_CSRC / name).read_bytes())
+    return BUILD_DIR / f"libprt_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless this source hash is built already;
+    returns the library's path.  ``<lib>.log`` keeps ptxas' report."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(_CSRC / s) for s in _SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n"
+            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, so)  # atomic: a concurrent process never loads half a file
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            handle.prt_error_string.argtypes = (ctypes.c_int,)
+            handle.prt_error_string.restype = ctypes.c_char_p
+            _lib = handle
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error code."""
+    if err:
+        msg = lib().prt_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err}: {msg}")

@@ -1,0 +1,78 @@
+"""The all-angle rotated-peak sweep: CUDA kernel wrapper and plain twin.
+
+Counterpart of ``phaserotate_tpu/kernels/rotate_peak.py``
+``rotate_peak_sweep_kernel``; the kernel is ``csrc/rotate_peak.cu``.  On a
+CPU tensor the wrapper runs the plain PyTorch version
+(:func:`rotate_peak_sweep_plain`); on a CUDA tensor it launches the kernel
+or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.peak import rotated_peak_sweep as rotate_peak_sweep_plain
+from . import _build
+
+__all__ = ["rotate_peak_sweep_kernel", "rotate_peak_sweep_plain"]
+
+_MAX_ANGLES = 512  # four angles per thread of a 128-thread block
+_MAX_TILE = 4096   # (b0, b1) tile in 32 KiB of static-sized shared memory
+
+
+def _rows(t: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., n) -> (rows, n) with unit sample stride, a view if possible."""
+    t = t.reshape(-1, n)
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def rotate_peak_sweep_kernel(
+    b0: torch.Tensor,
+    b1: torch.Tensor,
+    cos_sin: torch.Tensor,
+    tile_len: int = 4096,
+) -> torch.Tensor:
+    """``peaks[..., a] = max_m |cos[a]*b0[..., m] + sin[a]*b1[..., m]|``.
+
+    Args:
+      b0, b1: (..., n) float32 aligned dry/Hilbert signals (strided views
+        with a unit sample stride are read in place).
+      cos_sin: (2, A) float32 stacked [cos; sin], A <= 512.
+      tile_len: samples per block, a multiple of 4 up to 4096.
+
+    Returns (..., A) float32, bit-equal to the plain version.
+    """
+    if b0.device.type == "cpu":
+        return rotate_peak_sweep_plain(b0, b1, cos_sin)
+    if b0.device.type != "cuda":
+        raise ValueError(f"expected a CPU or CUDA tensor, got {b0.device}")
+    if b0.shape != b1.shape:
+        raise ValueError(f"b0 {tuple(b0.shape)} != b1 {tuple(b1.shape)}")
+    for t in (b0, b1, cos_sin):
+        if t.dtype != torch.float32 or t.device != b0.device:
+            raise TypeError("b0, b1 and cos_sin must be float32 on one device")
+    a = cos_sin.shape[-1]
+    if cos_sin.shape != (2, a) or not 0 < a <= _MAX_ANGLES:
+        raise ValueError(f"cos_sin must be (2, A<={_MAX_ANGLES}), "
+                         f"got {tuple(cos_sin.shape)}")
+    if tile_len % 4 or not 0 < tile_len <= _MAX_TILE:
+        raise ValueError(f"tile_len must be a multiple of 4 in "
+                         f"(0, {_MAX_TILE}], got {tile_len}")
+    lead = b0.shape[:-1]
+    n = b0.shape[-1]
+    r0, r1 = _rows(b0, n), _rows(b1, n)
+    rows = r0.shape[0]
+    if rows > 65535:
+        raise ValueError(f"at most 65535 rows per launch, got {rows}")
+    cs = cos_sin.contiguous()
+    out = torch.zeros((rows, a), dtype=torch.float32, device=b0.device)
+    if rows == 0 or n == 0:
+        return out.reshape(*lead, a)
+    lib = _build.lib()
+    err = lib.prt_rotate_peak_sweep(
+        r0.data_ptr(), r1.data_ptr(), r0.stride(0), r1.stride(0),
+        cs.data_ptr(), out.data_ptr(), rows, n, a, tile_len,
+        torch.cuda.current_stream(b0.device).cuda_stream)
+    _build.check(err, "rotate_peak_sweep")
+    _build.count_launch("rotate_peak_sweep")
+    return out.reshape(*lead, a)

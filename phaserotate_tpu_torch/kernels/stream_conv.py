@@ -1,0 +1,183 @@
+"""Small-geometry Hilbert convolution: CUDA kernel wrappers, plain twins.
+
+Counterpart of ``phaserotate_tpu/kernels/stream_conv.py``; the kernel is
+``csrc/stream_conv.cu``.  Internal framing is fixed at P = 256 samples: the
+partitioned convolution of one FIR is framing-invariant (it is the linear
+convolution ``(fir * x)[m]``), so every FIR of 512..16384 taps in steps of
+256 maps onto one kernel shape with ``n_segm = fir_taps / 256`` partitions.
+
+* :func:`hilbert_small` — conv-only mode, the Hilbert half of the
+  analyzer's sweep and apply (``fused_hilbert_small``).
+* :func:`rotate_small` — steady-angle mix mode, the FIR rotate
+  (``fused_rotate_small``).  The kernel takes per-frame (angle, slope)
+  pairs, the input the streaming engine's ``fused_stream_mix`` needs.
+
+On a CPU tensor each wrapper runs its plain twin; on a CUDA tensor it
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..core.angles import _TWO_PI
+from ..core.fir import _partition_fir_spectra_np, partition_fir_spectra
+from ..ops.convolve import partitioned_convolve
+from . import _build
+
+__all__ = [
+    "P",
+    "small_conv_supported",
+    "stream_mix_supported",
+    "hilbert_small",
+    "hilbert_small_plain",
+    "rotate_small",
+    "rotate_small_plain",
+]
+
+P = 256          # internal frame (samples consumed/produced per step)
+FFTK = 2 * P     # zero-padded transform length
+_BINS = P + 2    # bins 0..P plus one zero bin, the kernel's spectrum row
+
+
+def small_conv_supported(fir_taps: int) -> bool:
+    """FIR supports P-divisible tap counts with 2..64 partitions — covers
+    every plugin FIR (3072/4096/8192, src/phaserotate.c:278-290) and the
+    offline MIN_BLKSIZ FIR (1024 taps, cli/phase-rotate.cc:128-141)."""
+    return fir_taps % P == 0 and 2 <= fir_taps // P <= 64
+
+
+def stream_mix_supported(firlen: int) -> bool:
+    """The fused rotation mix additionally needs the FIR group delay to
+    be a whole number of internal frames (true for all plugin FIRs)."""
+    return small_conv_supported(firlen) and (firlen // 2) % P == 0
+
+
+@functools.lru_cache(maxsize=8)
+def _twiddles(device: torch.device) -> torch.Tensor:
+    """(FFTK, 2) float32 [cos, sin](2*pi*j/FFTK): the values of the JAX
+    kernel's DFT matrices (stream_conv.py _dft_consts), indexed by
+    (n*k) mod FFTK."""
+    ang = 2.0 * np.pi * np.arange(FFTK, dtype=np.float64) / FFTK
+    tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+    return torch.tensor(tw, device=device)
+
+
+@functools.lru_cache(maxsize=16)
+def _fir_parts(fir_taps: int, device: torch.device) -> torch.Tensor:
+    """(n_segm, _BINS, 2) float32 partition spectra of the FIR at P: the
+    reference's per-segment r2c transforms (src/phaserotate.c:396-401)."""
+    spec = _partition_fir_spectra_np(fir_taps, P)  # (ns, P+1) complex
+    out = np.zeros((spec.shape[0], _BINS, 2), np.float32)
+    out[:, : P + 1, 0] = spec.real
+    out[:, : P + 1, 1] = spec.imag
+    return torch.tensor(out, device=device)
+
+
+def _require_cuda_f32(x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"expected a CPU or CUDA tensor, got {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"expected float32, got {x.dtype}")
+
+
+def _frames(x: torch.Tensor, n_frames: int) -> torch.Tensor:
+    """(..., n) -> (rows, n_frames, P) contiguous, zero padded."""
+    n = x.shape[-1]
+    xp = torch.nn.functional.pad(x.reshape(-1, n), (0, n_frames * P - n))
+    return xp.reshape(-1, n_frames, P).contiguous()
+
+
+def _launch(frames: torch.Tensor, fir_taps: int,
+            angs: torch.Tensor | None) -> torch.Tensor:
+    """Run csrc/stream_conv.cu on (B, n_frames, P) frames; with ``angs``
+    (B, n_frames, 2) the output is mixed against the input delayed by
+    fir_taps/2."""
+    b, n_frames, _ = frames.shape
+    if b > 65535:
+        raise ValueError(f"at most 65535 rows per launch, got {b}")
+    dev = frames.device
+    d_frames = (fir_taps // 2) // P if angs is not None else 0
+    fir = _fir_parts(fir_taps, dev)
+    spec = torch.empty((b, n_frames, _BINS, 2), dtype=torch.float32,
+                       device=dev)
+    out = torch.empty((b, n_frames, P), dtype=torch.float32, device=dev)
+    lib = _build.lib()
+    err = lib.prt_stream_conv(
+        frames.data_ptr(), fir.data_ptr(), _twiddles(dev).data_ptr(),
+        None if angs is None else angs.data_ptr(), spec.data_ptr(),
+        out.data_ptr(), b, n_frames, fir.shape[0], d_frames,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "stream_conv")
+    return out
+
+
+def hilbert_small_plain(x: torch.Tensor, fir_taps: int) -> torch.Tensor:
+    """Plain twin of :func:`hilbert_small` on ``torch.fft``."""
+    n_frames = -(-x.shape[-1] // P) + fir_taps // P
+    spectra = partition_fir_spectra(fir_taps, P, x.device)
+    return partitioned_convolve(x, spectra, P)[..., : n_frames * P]
+
+
+def hilbert_small(x: torch.Tensor, fir_taps: int) -> torch.Tensor:
+    """Linear convolution stream ``h[m] = (fir * x)[m]`` of ``x`` (..., n)
+    with the ``fir_taps``-tap Hilbert FIR.
+
+    Returns (..., n_frames*P) with ``n_frames = ceil(n/P) + fir_taps/P``
+    — the full convolution support.
+    """
+    if not small_conv_supported(fir_taps):
+        raise ValueError(f"unsupported fir_taps {fir_taps}")
+    if x.device.type == "cpu":
+        return hilbert_small_plain(x, fir_taps)
+    _require_cuda_f32(x)
+    lead, n = x.shape[:-1], x.shape[-1]
+    n_frames = -(-n // P) + fir_taps // P
+    out = _launch(_frames(x, n_frames), fir_taps, None)
+    _build.count_launch("hilbert_small")
+    return out.reshape(*lead, n_frames * P)
+
+
+def rotate_small_plain(x: torch.Tensor, turns: torch.Tensor,
+                       firlen: int) -> torch.Tensor:
+    """Plain twin of :func:`rotate_small` on ``torch.fft``."""
+    lat = firlen // 2
+    n = x.shape[-1]
+    spectra = partition_fir_spectra(firlen, P, x.device)
+    h = partitioned_convolve(x, spectra, P)[..., lat : lat + n]
+    rad = torch.as_tensor(turns, dtype=torch.float32, device=x.device)
+    rad = (rad * float(_TWO_PI))[..., None]
+    return torch.cos(rad) * x + torch.sin(rad) * h
+
+
+def rotate_small(x: torch.Tensor, turns, firlen: int) -> torch.Tensor:
+    """Steady-angle FIR rotation:
+
+        out[m] = cos(2*pi*turns)*x[m] + sin(2*pi*turns)*(fir*x)[m + lat]
+
+    with ``lat = firlen/2`` (group delay compensated, time-aligned).
+
+    Args:
+      x: (..., n) float32.
+      turns: negated-turns angle, broadcastable to ``x.shape[:-1]``.
+    """
+    if not stream_mix_supported(firlen):
+        raise ValueError(f"unsupported firlen {firlen}")
+    if x.device.type == "cpu":
+        return rotate_small_plain(x, turns, firlen)
+    _require_cuda_f32(x)
+    lat = firlen // 2
+    lead, n = x.shape[:-1], x.shape[-1]
+    n_frames = -(-(n + lat) // P)  # stream must cover n + lat
+    frames = _frames(x, n_frames)
+    b = frames.shape[0]
+    t = torch.as_tensor(turns, dtype=torch.float32, device=x.device)
+    t = t.broadcast_to(lead).reshape(b)
+    angs = torch.stack([t[:, None].expand(b, n_frames),
+                        t.new_zeros(b, n_frames)], dim=-1).contiguous()
+    out = _launch(frames, firlen, angs)
+    _build.count_launch("rotate_small")
+    return out.reshape(b, n_frames * P)[:, lat : lat + n].reshape(*lead, n)

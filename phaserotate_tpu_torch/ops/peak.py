@@ -1,0 +1,56 @@
+"""Peak scanning (plain torch).
+
+Torch twins of ``phaserotate_tpu/ops/peak.py``: the reference's SIMD peak
+scan (cli/dsp_peak_calc.h) and rotated-peak evaluator
+(cli/phase-rotate.cc:98-121).  :func:`rotated_peak_sweep` is the plain
+version the CUDA sweep kernel (kernels/rotate_peak.py) is held to.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["compute_peak", "rotated_peak_sweep"]
+
+# elements of one (rows, A, chunk) temporary of the sweep: 64 MiB of f32
+_SWEEP_TEMP_ELEMS = 1 << 24
+
+
+def compute_peak(buf: torch.Tensor, current=0.0) -> torch.Tensor:
+    """max(|buf|) over the last axis folded with a running peak
+    (dsp_peak_calc.h:27)."""
+    peak = buf.abs().amax(dim=-1) if buf.numel() else buf.new_zeros(())
+    return torch.clamp(peak, min=float(current))
+
+
+def rotated_peak_sweep(
+    b0: torch.Tensor,
+    b1: torch.Tensor,
+    cos_sin: torch.Tensor,
+) -> torch.Tensor:
+    """Peak of ``cos[a]*b0 + sin[a]*b1`` for every angle ``a`` at once.
+
+    Args:
+      b0, b1: (..., n) float32 — aligned input and Hilbert signals.
+      cos_sin: (2, A) float32 — stacked [cos; sin] rows
+        (core/angles.all_angle_cos_sin).
+
+    Returns (..., A) float32 peaks.  Each product and the sum are rounded
+    to float32 separately (no fused multiply-add), and max is exact, so
+    the CUDA kernel that rounds the same way matches this bit for bit.
+    The samples are walked in chunks so the (rows, A, n) rotation tensor
+    is never materialized.
+    """
+    lead = b0.shape[:-1]
+    n = b0.shape[-1]
+    rows = b0.reshape(-1, n)
+    hil = b1.reshape(-1, n)
+    a = cos_sin.shape[-1]
+    c = cos_sin[0][None, :, None]
+    s = cos_sin[1][None, :, None]
+    chunk = max(1, _SWEEP_TEMP_ELEMS // max(1, rows.shape[0] * a))
+    peaks = rows.new_zeros(rows.shape[0], a)
+    for i in range(0, n, chunk):
+        p = c * rows[:, None, i : i + chunk] + s * hil[:, None, i : i + chunk]
+        peaks = torch.maximum(peaks, p.abs().amax(dim=-1))
+    return peaks.reshape(*lead, a)

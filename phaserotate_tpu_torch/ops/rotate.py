@@ -1,0 +1,141 @@
+"""Offline (whole-buffer) phase rotation (torch).
+
+Same semantics as ``phaserotate_tpu/ops/rotate.py``: rotating by ``d``
+degrees multiplies every positive-frequency component by ``e^{-j*theta}``
+(``theta = 2*pi*d/360``), i.e. ``cos(w t) -> cos(w t - theta)``.
+
+* ``spectral`` — exact, zero latency: one whole-signal real FFT, per-bin
+  complex rotation, inverse FFT.  DC and Nyquist scale by cos(theta).
+* ``fir`` — the plugin's windowed-FIR filter (src/phaserotate.c:374-401 +
+  640-717), time-aligned.  On CUDA it runs the stream_conv kernel in mix
+  mode for every FIR the kernel can frame.
+
+Both take batched input ``(..., n)`` and ``degrees`` broadcastable to the
+leading dims.
+
+Dispatch follows the JAX package's: where JAX on a TPU takes a Pallas
+kernel the port on CUDA takes its CUDA kernel, and where JAX takes plain
+XLA the port takes plain torch.  The single-partition ``fused_conv`` kernel
+is not ported yet, so what JAX would send there raises on CUDA.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..core import angles as _angles
+from ..core import sizes as _sizes
+from ..core.fir import partition_fir_spectra
+from ..kernels.stream_conv import rotate_small, stream_mix_supported
+from .convolve import partitioned_convolve
+
+__all__ = ["rotate", "rotate_spectral", "rotate_fir", "hilbert_fir"]
+
+_FUSED_CONV_TODO = (
+    "the single-partition FIR convolution kernel (phaserotate_tpu/kernels/"
+    "fused_conv.py) is not ported to CUDA yet: ROADMAP.md, TPU kernels to "
+    "port, item 5")
+
+
+def _as_f32(audio, device) -> torch.Tensor:
+    return torch.as_tensor(audio, dtype=torch.float32, device=device)
+
+
+def _fused_conv_covers(firlen: int) -> bool:
+    """True where JAX on a TPU runs ``fused_conv`` for a FIR of
+    ``firlen`` taps: its single partition, the next power of two from
+    2048, is at most 16384 (fused_conv.supported_parsiz/fused_parsiz_for).
+    """
+    return firlen <= 16384
+
+
+def _theta(degrees, device) -> torch.Tensor:
+    """Degrees -> rotation angle theta (radians), via the reference's
+    clamped negated-turns representation (src/phaserotate.c:564-571)."""
+    turns = _angles.degrees_to_turns(degrees, device=device)
+    return -_angles.turns_to_radians(turns)
+
+
+def rotate_spectral(audio, degrees, device=None) -> torch.Tensor:
+    """Exact spectral phase rotation of ``audio`` (..., n) by ``degrees``
+    (scalar or broadcastable to the leading dims)."""
+    x = _as_f32(audio, device)
+    n = x.shape[-1]
+    theta = _theta(degrees, x.device)[..., None]
+    X = torch.fft.rfft(x, dim=-1)  # (..., n//2+1)
+    nbins = X.shape[-1]
+    rot = torch.polar(torch.ones_like(theta), -theta)
+    # DC (and Nyquist for even n) are their own conjugate mirror: the
+    # rotation operator cos*I + sin*H degenerates to cos there.
+    k = torch.arange(nbins, device=x.device)
+    edge = (k == 0) | ((n % 2 == 0) & (k == nbins - 1))
+    coef = torch.where(edge, torch.cos(theta).to(torch.complex64), rot)
+    return torch.fft.irfft(X * coef, n=n, dim=-1)
+
+
+def hilbert_fir(audio, firlen: int, device=None) -> torch.Tensor:
+    """Apply the reference's windowed Hilbert FIR, time-aligned.
+
+    Returns ``g(x)``, the *negative* Hilbert transformer's approximation
+    (core/fir.py) with its group delay of ``firlen/2`` compensated.
+    Single-partition OLA on ``torch.fft``; on CUDA that is the plain path
+    only where the JAX package also leaves it to plain XLA.
+    """
+    x = _as_f32(audio, device)
+    if x.device.type == "cuda" and _fused_conv_covers(firlen):
+        raise NotImplementedError(_FUSED_CONV_TODO)
+    lat = firlen // 2
+    spectra = partition_fir_spectra(firlen, firlen, x.device)
+    full = partitioned_convolve(x, spectra, firlen)
+    return full[..., lat : lat + x.shape[-1]]
+
+
+def _rotate_fir_impl(x: torch.Tensor, turns: torch.Tensor, firlen: int):
+    if stream_mix_supported(firlen):
+        return rotate_small(x, turns, firlen)
+    if x.device.type == "cuda" and _fused_conv_covers(firlen):
+        raise NotImplementedError(_FUSED_CONV_TODO)
+    sa, ca = _angles.sin_cos_turns(turns)
+    h = hilbert_fir(x, firlen)
+    return ca[..., None] * x + sa[..., None] * h
+
+
+def rotate_fir(audio, degrees, rate: float = 48000.0,
+               firlen: Optional[int] = None, device=None) -> torch.Tensor:
+    """FIR phase rotation with the plugin's filter (parity path).
+
+    Matches the steady-state output of the LV2 plugin at sample rate
+    ``rate`` after its ``parsiz + firlen/2`` latency is trimmed
+    (src/phaserotate.c:297).
+    """
+    x = _as_f32(audio, device)
+    if firlen is None:
+        firlen = _sizes.stream_geometry_for_rate(rate).firlen
+    turns = _angles.degrees_to_turns(degrees, device=x.device)
+    return _rotate_fir_impl(x, turns, firlen)
+
+
+def rotate(audio, degrees, method: str = "spectral", rate: float = 48000.0,
+           firlen: Optional[int] = None, device=None) -> torch.Tensor:
+    """Rotate the phase of every frequency component of ``audio`` by
+    ``degrees``.
+
+    Args:
+      audio: (..., n) float array or tensor — any leading batch dims.
+      degrees: scalar or broadcastable to ``audio.shape[:-1]``; positive
+        values delay component phases (+90 turns sin into -cos).
+      method: ``"spectral"`` (exact, default) or ``"fir"`` (plugin parity).
+      rate: sample rate, used only to pick the FIR geometry for ``"fir"``.
+      firlen: explicit FIR length override for ``"fir"``.
+      device: where a non-tensor ``audio`` goes; a tensor stays on its own.
+
+    Returns the rotated signal, float32, same shape, time-aligned.
+    """
+    if method == "spectral":
+        return rotate_spectral(audio, degrees, device=device)
+    if method == "fir":
+        return rotate_fir(audio, degrees, rate=rate, firlen=firlen,
+                          device=device)
+    raise ValueError(f"unknown method {method!r}; expected 'spectral' or 'fir'")

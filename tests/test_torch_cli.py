@@ -1,0 +1,131 @@
+"""The port's CLI against phaserotate_tpu.cli on WAV files, and the port's
+independence from JAX at run time."""
+
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from phaserotate_tpu import cli as j_cli
+from phaserotate_tpu.io import read_wav as j_read_wav
+from phaserotate_tpu_torch import cli as p_cli
+from phaserotate_tpu_torch.io import read_wav, write_wav
+
+from test_search import make_signal
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run(main, argv, capsys):
+    rc = main(argv)
+    out = capsys.readouterr()
+    return rc, out.out, out.err
+
+
+def _angles(text):
+    return [float(a) for a in re.findall(r"Phase:\s*(-?[\d.]+) deg", text)]
+
+
+def _assert_same_text(got, want):
+    """Line for line and word for word equal, except that a printed
+    number may differ by one unit in its last printed place: the two
+    tables agree to float32 roundoff, and a value that close to a rounding
+    boundary of the dB or linear print may land on either side of it.
+    Angles are multiples of 0.5 degrees, so any angle change still
+    fails."""
+    g_lines, w_lines = got.splitlines(), want.splitlines()
+    assert len(g_lines) == len(w_lines)
+    for g_line, w_line in zip(g_lines, w_lines):
+        g_words, w_words = g_line.split(), w_line.split()
+        assert len(g_words) == len(w_words), (g_line, w_line)
+        for g, w in zip(g_words, w_words):
+            if g == w:
+                continue
+            m = re.fullmatch(r"-?\d+\.(\d+),?", w)
+            assert m and re.fullmatch(r"-?\d+\.\d+,?", g), (g_line, w_line)
+            ulp = 10.0 ** -len(m.group(1))
+            assert abs(float(g.rstrip(",")) - float(w.rstrip(","))) <= \
+                ulp * 1.01, (g_line, w_line)
+
+
+@pytest.fixture
+def stereo_wav(tmp_path, rng):
+    p = str(tmp_path / "in.wav")
+    x = make_signal(rng, 2, 8000)
+    write_wav(p, x, 48000, bits=16, float_format=False)
+    return p
+
+
+@pytest.mark.parametrize("flags", [[], ["-v"], ["-vv"], ["-vv", "-l"],
+                                   ["-vv", "-s", "1"], ["-s", "90", "-f",
+                                                        "2048"]])
+def test_analysis_output_equals_jax_cli(stereo_wav, capsys, flags):
+    argv = flags + [stereo_wav]
+    j_rc, j_out, j_err = _run(j_cli.main, argv, capsys)
+    p_rc, p_out, p_err = _run(p_cli.main, argv, capsys)
+    assert p_rc == j_rc == 0
+    _assert_same_text(p_out, j_out)
+    _assert_same_text(p_err, j_err)
+    assert _angles(p_out + p_err) == _angles(j_out + j_err)
+    assert _angles(p_out + p_err)  # a result was printed
+
+
+def test_analyze_then_apply_round_trip(stereo_wav, tmp_path, capsys):
+    _, out, _ = _run(p_cli.main, [stereo_wav], capsys)
+    angles = _angles(out)
+    assert len(angles) == 2 and any(angles)
+    spec = ",".join(f"{a:g}" for a in angles)
+    j_dst, p_dst = str(tmp_path / "j.wav"), str(tmp_path / "p.wav")
+    assert j_cli.main(["-a", spec, stereo_wav, j_dst]) == 0
+    assert p_cli.main(["-a", spec, stereo_wav, p_dst]) == 0
+    want, j_rate, _ = j_read_wav(j_dst)
+    got, p_rate, _ = read_wav(p_dst)
+    assert p_rate == j_rate == 48000
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    # the chosen rotation lowers the digital peak
+    src, _, _ = read_wav(stereo_wav)
+    assert np.abs(got).max() < np.abs(src).max()
+
+
+def test_validation_errors_equal_jax_cli(stereo_wav, tmp_path, capsys):
+    for argv in (["-s", "7", stereo_wav], ["-f", "100", stereo_wav],
+                 ["-a", "10", stereo_wav], ["-a", "200", stereo_wav, "o.wav"],
+                 [str(tmp_path / "missing.wav")]):
+        codes = []
+        for main in (j_cli.main, p_cli.main):
+            try:
+                codes.append(main(argv))
+            except SystemExit as e:
+                codes.append(e.code)
+            codes.append(capsys.readouterr().err.split(":")[0])
+        assert codes[:2] == codes[2:], argv
+
+
+def test_port_runs_without_jax():
+    """A fresh interpreter that uses the port never loads JAX or the JAX
+    package."""
+    code = (
+        "import sys, numpy as np\n"
+        "import phaserotate_tpu_torch as pr\n"
+        "x = np.sin(np.arange(6000) * 0.05).astype(np.float32)\n"
+        "x = np.stack([x, np.roll(x, 17) * 0.5])\n"
+        "res = pr.find_min_peak_angle(x, rate=48000)\n"
+        "y = pr.rotate(x, 35.0, method='fir')\n"
+        "assert y.shape == x.shape and len(res.angles_units) == 2\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m == 'jax' or m.startswith(('jax.', 'phaserotate_tpu.'))\n"
+        "       or m == 'phaserotate_tpu']\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
