@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one CUDA card.
+"""Drive the PyTorch/CUDA port's main paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -9,16 +9,25 @@ then, on the first CUDA device:
 1. writes a 4-minute stereo 48 kHz 16-bit WAV made from a numpy seed and
    runs the port's CLI on it as a user would: ``-vv in.wav`` (analyze),
    then ``-a <found> in.wav out.wav`` (apply), as subprocesses;
-2. runs the same two CLI calls in this process with every kernel launch
-   counter at 0, then the fleet-shaped search (64 files x 2 channels x
-   10 s, ``sweep_peaks_aux`` + ``select_min_peak_angles_batch``) and the
-   FIR rotate of 64 one-minute mono stems at independent angles, and
-   fails unless every kernel was launched;
-3. holds each kernel against its plain PyTorch version on the same CUDA
-   tensors at those shapes (sweep table bit-equal, convolution < 1e-5,
-   rotation mix < 2e-5, chosen angles equal) and the slice against the
-   repository's numpy CLI simulator on a small input (3e-5);
-4. prints the wall time of each phase and each kernel's time beside its
+2. with every kernel launch counter at 0, drives the main paths in this
+   process: the same two CLI calls, the fleet-shaped search (64 files x 2
+   channels x 10 s), the FIR rotate of 64 one-minute mono stems,
+   ``hilbert_fir`` of those stems with the plugin's 3072-tap FIR,
+   ``OfflineRotator`` with a 16128-tap FIR, ``rotate_streamed`` of the
+   4-minute file, a stereo ``PhaseRotator`` over 60 s of it in 1024-sample
+   host blocks with meters on, and ``AngleAnalyzer.analyze_many`` on 8
+   fleet files with a checkpoint; it fails unless every kernel of those
+   paths was launched;
+3. checks the outputs: against the plain PyTorch path (the kernels' plain
+   twins) on the card, against the repository's numpy CLI simulator on a
+   small input, the streaming rotator against the bulk engine, block-size
+   independence, a bit-identical checkpoint resume, and the resumed
+   analysis;
+4. holds each kernel against its plain twin on the same CUDA tensors at
+   the main paths' shapes (sweep table and peak bit-equal, conv < 1e-5,
+   mixes < 2e-5, fused_conv at every supported partition size), counting
+   the two kernels no main path calls (``fused_rotate_fir``, ``peak``);
+5. prints the wall time of each phase and each kernel's time beside its
    plain version's, with the card's name and power limit.
 
 The line before the last is a JSON object of the kernels; the last is
@@ -123,28 +132,48 @@ def cuda_ms(fn, reps: int = 5) -> float:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the slice through the kernels' plain twins (for comparison
+    """Route the paths through the kernels' plain twins (for comparison
     runs only: the main path's counted run never takes this)."""
     import importlib
 
+    from phaserotate_tpu_torch.kernels import fused_conv as fc
     from phaserotate_tpu_torch.kernels import rotate_peak as rp
     from phaserotate_tpu_torch.kernels import stream_conv as sc
     from phaserotate_tpu_torch.search import sweep
+    from phaserotate_tpu_torch.stream import engine
 
     # the package re-exports the function rotate over the module's name
     rot = importlib.import_module("phaserotate_tpu_torch.ops.rotate")
 
     saved = (sweep.hilbert_small, sweep.rotate_peak_sweep_kernel,
-             rot.rotate_small)
+             rot.rotate_small, fc.fused_ola_conv, engine.fused_stream_mix)
     sweep.hilbert_small = sc.hilbert_small_plain
     sweep.rotate_peak_sweep_kernel = (
         lambda b0, b1, cs, tile_len=0: rp.rotate_peak_sweep_plain(b0, b1, cs))
     rot.rotate_small = sc.rotate_small_plain
+    fc.fused_ola_conv = fc.fused_ola_conv_plain
+    engine.fused_stream_mix = sc.fused_stream_mix_plain
     try:
         yield
     finally:
         (sweep.hilbert_small, sweep.rotate_peak_sweep_kernel,
-         rot.rotate_small) = saved
+         rot.rotate_small, fc.fused_ola_conv,
+         engine.fused_stream_mix) = saved
+
+
+def push_blocks(rot, x, block: int, targets=None, save_at=None,
+                path=None):
+    """Push (C, n) host audio through a streaming rotator in ``block``
+    sample blocks; ``targets[i]`` is block i's angle (35 deg if None).
+    With ``save_at`` the rotator is checkpointed to ``path`` after that
+    many blocks.  Returns the (C, n) output."""
+    outs = []
+    for i, start in enumerate(range(0, x.shape[1], block)):
+        deg = 35.0 if targets is None else targets[i]
+        outs.append(rot.process(x[:, start : start + block], deg))
+        if save_at is not None and i + 1 == save_at:
+            rot.save(path)
+    return np.concatenate(outs, axis=1)
 
 
 def result_angles(text: str):
@@ -205,19 +234,29 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
     """Phases 1-4 of the module docstring; files go under ``tmp``."""
     import torch
 
-    from phaserotate_tpu_torch import cli, rotate
+    from phaserotate_tpu_torch import (AngleAnalyzer, OfflineRotator,
+                                       PhaseRotator, cli, rotate)
     from phaserotate_tpu_torch.core.angles import (all_angle_cos_sin,
                                                    degrees_to_turns)
-    from phaserotate_tpu_torch.core.sizes import offline_geometry
+    from phaserotate_tpu_torch.core.sizes import (StreamGeometry,
+                                                  offline_geometry,
+                                                  stream_geometry_for_rate)
     from phaserotate_tpu_torch.io import read_wav, write_wav
     from phaserotate_tpu_torch.kernels import _build
+    from phaserotate_tpu_torch.kernels import fused_conv as fc
     from phaserotate_tpu_torch.kernels import stream_conv as sc
     from phaserotate_tpu_torch.kernels.rotate_peak import (
-        rotate_peak_sweep_kernel, rotate_peak_sweep_plain)
+        peak_kernel, peak_plain, rotate_peak_sweep_kernel,
+        rotate_peak_sweep_plain)
+    from phaserotate_tpu_torch.ops.rotate import hilbert_fir
     from phaserotate_tpu_torch.search import (
         apply_angles, find_min_peak_angle, select_min_peak_angles_batch,
         sweep_peaks_aux)
     from phaserotate_tpu_torch.search.sweep import aligned_pair
+    from phaserotate_tpu_torch.stream import rotate_streamed
+    from phaserotate_tpu_torch.stream.engine import (
+        _internal_angle_params, angle_sequence, init_state,
+        stream_process_bulk)
 
     rng = np.random.default_rng(SEED)
     src = os.path.join(tmp, "in.wav")
@@ -263,11 +302,42 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
             table.cpu().numpy(), rot0=rot0.cpu().numpy())
     with phase("rotate_fir_64x60s", card, times):
         rotated = rotate(stems, stem_degs, method="fir")
+    # the plugin's 48 kHz FIR: fused_conv at parsiz 4096
+    with phase("hilbert_fir_64x60s", card, times):
+        h3072 = hilbert_fir(stems, 3072)
+    # a FIR the small kernel cannot frame: fused_conv at parsiz 16384
+    geom16k = StreamGeometry(48000.0, 512, 16128)
+    with phase("offline_rotator_firlen16128_64x60s", card, times):
+        off16k = OfflineRotator(rate=RATE, method="fir", geom=geom16k)(
+            stems, stem_degs)
+    x4 = torch.from_numpy(audio).to(dev)
+    with phase("rotate_streamed_4min", card, times):
+        streamed = torch.stack([rotate_streamed(x4[c], 35.0)
+                                for c in range(2)])
+    # the plugin role: stereo, 1024-sample host blocks, meters on, the
+    # target changing once a second at a block boundary
+    sgeom = stream_geometry_for_rate(RATE)
+    n_rt = 2813 * 1024  # 60.01 s
+    rt_audio = np.ascontiguousarray(audio[:, :n_rt])
+    per_second = rng.uniform(-180.0, 180.0, n_rt // RATE + 1)
+    block_degs = [float(per_second[(i * 1024) // RATE])
+                  for i in range(n_rt // 1024)]
+    rt_rot = PhaseRotator(rate=RATE, channels=2, device=dev)
+    with phase("phase_rotator_stereo_60s", card, times):
+        rt_out = push_blocks(rt_rot, rt_audio, 1024, block_degs)
+    rt_levels = [rt_rot.levels(c) for c in range(2)]
+    ckpt = os.path.join(tmp, "sweeps.npz")
+    fleet8 = {f"f{i}": fleet[i] for i in range(8)}
+    analyzer = AngleAnalyzer(rate=RATE, device=dev)
+    with phase("analyzer_8x2x10s", card, times):
+        an_first = analyzer.analyze_many(fleet8, checkpoint=ckpt)
     sync()
     launches = dict(_build.launches)
     print(f"launches: {json.dumps(launches)}")
     for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched by the main path")
+        if name not in ("fused_rotate_fir", "peak"):  # no production caller
+            check(count > 0,
+                  f"kernel {name} was not launched by the main path")
 
     # ---- outputs are right ----
     y_sub, _, _ = read_wav(out_sub)
@@ -276,7 +346,6 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
           "applied file: shape or finiteness")
     check(np.array_equal(y_sub, y_inp), "subprocess and in-process apply")
     with plain_kernels():
-        x4 = torch.from_numpy(audio).to(dev)
         units = [int(round(a * 2)) for a in sub_angles]
         y_plain = apply_angles(x4, units, geom).cpu().numpy()
         t_plain, r_plain = sweep_peaks_aux(fleet, geom)
@@ -303,6 +372,81 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
     gain = [r.peak_zero[0] - r.peak_min[0] for r in fleet_res]
     check(all(g >= 0 for g in gain), "a chosen angle raised the peak")
 
+    # ---- the streaming and model paths: outputs against the plain path ----
+    with plain_kernels():
+        h3072_plain = hilbert_fir(stems, 3072)
+        off16k_plain = OfflineRotator(rate=RATE, method="fir",
+                                      geom=geom16k)(stems, stem_degs)
+        streamed_plain = torch.stack([rotate_streamed(x4[c], 35.0)
+                                      for c in range(2)])
+    for name, got, want, tol in (
+            ("hilbert_fir 64x60 s", h3072, h3072_plain, 3e-6),
+            ("OfflineRotator firlen 16128", off16k, off16k_plain, 2e-5),
+            ("rotate_streamed 4 min", streamed, streamed_plain, 1e-5)):
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"{name}: shape or finiteness")
+        err = float((got - want).abs().max())
+        print(f"{name}: max|kernel - plain| {err!r}")
+        check(err < tol, f"{name} vs plain path: {err}")
+    # the streamed 4-minute file equals the offline FIR rotate once the
+    # 35 deg ramp-in (2 plugin blocks) has passed
+    settled = rotate(x4, 35.0, method="fir")
+    st_err = float((streamed - settled)[:, 1024 : -4096].abs().max())
+    print(f"rotate_streamed vs rotate(fir) after the ramp-in: {st_err!r}")
+    check(st_err < 2e-5, "streamed vs offline FIR rotation")
+
+    # PhaseRotator: the bulk engine once over the whole signal with the
+    # same per-frame targets, delayed by the shell's one-frame staging
+    frame_degs = np.repeat(np.asarray(block_degs, np.float32),
+                           1024 // sgeom.parsiz)
+    frames = torch.from_numpy(rt_audio).to(dev).reshape(2, -1, sgeom.parsiz)
+    bulk = torch.stack([stream_process_bulk(
+        init_state(sgeom, device=dev), frames[c], frame_degs, sgeom)[1]
+        for c in range(2)]).reshape(2, -1).cpu().numpy()
+    p = sgeom.parsiz
+    rt_err = float(np.abs(rt_out[:, p:] - bulk[:, :-p]).max())
+    check(np.all(rt_out[:, :p] == 0), "PhaseRotator staging delay")
+    print(f"PhaseRotator 60 s vs bulk engine: max err {rt_err!r}")
+    check(rt_err < 1e-5, "PhaseRotator vs stream_process_bulk")
+    for c, lv in enumerate(rt_levels):
+        vals = [float(getattr(lv, f.name)) for f in
+                lv.__dataclass_fields__.values()]
+        check(all(np.isfinite(vals)), f"meters of channel {c} not finite")
+        print(f"meters ch{c}: " + " ".join(
+            f"{f.name}={float(getattr(lv, f.name)):.6g}"
+            for f in lv.__dataclass_fields__.values()))
+    # block-size independence and a bit-identical mid-stream resume over
+    # 10 s at a constant angle
+    n10 = 10 * RATE
+    x10 = np.ascontiguousarray(audio[:, :n10])
+    r1024 = PhaseRotator(rate=RATE, channels=2, meters=False, device=dev)
+    with phase("phase_rotator_10s_1024", card, times):
+        y1024 = push_blocks(r1024, x10, 1024)
+    resume = os.path.join(tmp, "stream.npz")
+    save_at = 721  # 240093 samples: mid-frame
+    r333 = PhaseRotator(rate=RATE, channels=2, meters=False, device=dev)
+    with phase("phase_rotator_10s_333", card, times):
+        y333 = push_blocks(r333, x10, 333, save_at=save_at, path=resume)
+    check(np.array_equal(y333, y1024), "333- vs 1024-sample host blocks")
+    r_res = PhaseRotator(rate=RATE, channels=2, meters=False, device=dev)
+    r_res.load(resume)
+    check(r_res._offset != 0, "the resume point is not mid-frame")
+    y_res = push_blocks(r_res, x10[:, save_at * 333 :], 333)
+    check(np.array_equal(y_res, y333[:, save_at * 333 :]),
+          "resumed stream is not bit-identical")
+    print("PhaseRotator: 333- and 1024-sample blocks bit-equal over 10 s; "
+          "mid-frame checkpoint resume bit-identical")
+    # AngleAnalyzer: the resume reads the checkpoint (zeroed input)
+    an_second = analyzer.analyze_many(
+        {k: torch.zeros_like(v) for k, v in fleet8.items()}, checkpoint=ckpt)
+    for i, k in enumerate(fleet8):
+        check(an_first[k].angles_units == fleet_res[i].angles_units,
+              f"analyzer {k} vs sweep_peaks_aux")
+        check(an_second[k].angles_units == an_first[k].angles_units,
+              f"analyzer resume {k}")
+    print("AngleAnalyzer: 8 files, angles equal to sweep_peaks_aux and "
+          "equal after the checkpoint resume")
+
     # small input against the numpy CLI simulator (tests/ref_cli_sim.py)
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from ref_cli_sim import RefRotate
@@ -323,7 +467,6 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
 
     # ---- 3. each kernel against its plain twin at the main path's shapes
     kernels = []
-    x4 = torch.from_numpy(audio).to(dev)
     b0, b1, _, _ = aligned_pair(x4, geom)
     cs = all_angle_cos_sin(dev)
     fb0, fb1, _, _ = aligned_pair(fleet, geom)
@@ -368,6 +511,95 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
         plain_ms=cuda_ms(lambda: sc.rotate_small_plain(stems, turns, 3072),
                          2)))
 
+    # the ramp: a target that changes every 50 plugin blocks
+    n_blocks = -(-(n_4min + sgeom.latency) // sgeom.parsiz)
+    ramp_degs = np.repeat(rng.uniform(-180.0, 180.0, -(-n_blocks // 50)),
+                          50)[:n_blocks].astype(np.float32)
+    angles, das, _, _ = angle_sequence(np.float32(0.0), ramp_degs, sgeom)
+    check(bool((das != 0).any()), "the ramp schedule has no slope")
+    params = torch.from_numpy(
+        _internal_angle_params(angles, das, sgeom)).to(dev)[None]
+    fr256 = torch.nn.functional.pad(
+        x4[0], (0, params.shape[1] * sc.P - n_4min)).reshape(1, -1, sc.P)
+    sm_err = float((sc.fused_stream_mix(fr256, params, sgeom.firlen)
+                    - sc.fused_stream_mix_plain(fr256, params, sgeom.firlen)
+                    ).abs().max())
+    check(sm_err < 1e-5, f"fused_stream_mix vs plain: {sm_err}")
+    kernels.append(dict(
+        name="stream_conv_stream_mix", route="cuda",
+        source="phaserotate_tpu_torch/csrc/stream_conv.cu",
+        replaces="phaserotate_tpu/kernels/stream_conv.py:329",
+        launches=launches["stream_mix"], max_abs_err=sm_err,
+        ms=cuda_ms(lambda: sc.fused_stream_mix(fr256, params, sgeom.firlen)),
+        plain_ms=cuda_ms(lambda: sc.fused_stream_mix_plain(
+            fr256, params, sgeom.firlen), 2)))
+
+    # fused_conv conv mode at every supported partition size: the two
+    # main-path shapes (64 stems at 4096 and 16384) and the 4-minute
+    # stereo file at 2048 and 8192
+    def framed(x, parsiz):
+        n_f = -(-x.shape[-1] // parsiz) + 1
+        return torch.nn.functional.pad(
+            x, (0, n_f * parsiz - x.shape[-1])).reshape(-1, n_f, parsiz)
+
+    fc_err, fc_ms = 0.0, {}
+    for parsiz, firlen, xin in ((2048, 2048, x4), (4096, 3072, stems),
+                                (8192, 8192, x4), (16384, 16128, stems)):
+        frames_p = framed(xin, parsiz)
+        spec = fc.hilbert_fir_spectrum(firlen, parsiz, dev)
+        err = float((fc.fused_ola_conv(frames_p, spec, parsiz)
+                     - fc.fused_ola_conv_plain(frames_p, spec, parsiz)
+                     ).abs().max())
+        print(f"fused_conv parsiz {parsiz} (firlen {firlen}, "
+              f"{tuple(frames_p.shape)}): max err {err!r}")
+        check(err < (3e-6 if parsiz <= 4096 else 1e-5),
+              f"fused_conv parsiz {parsiz} vs plain: {err}")
+        fc_err = max(fc_err, err)
+        if xin is stems:
+            fc_ms[parsiz] = (
+                cuda_ms(lambda: fc.fused_ola_conv(frames_p, spec, parsiz)),
+                cuda_ms(lambda: fc.fused_ola_conv_plain(frames_p, spec,
+                                                        parsiz), 2))
+            print(f"fused_conv parsiz {parsiz} 64x60 s: kernel "
+                  f"{fc_ms[parsiz][0]!r} ms, plain {fc_ms[parsiz][1]!r} ms "
+                  f"[{card}]")
+        del frames_p
+    kernels.append(dict(
+        name="fused_conv_hilbert", route="cuda",
+        source="phaserotate_tpu_torch/csrc/fused_conv.cu",
+        replaces="phaserotate_tpu/kernels/fused_conv.py:375",
+        launches=launches["fused_hilbert"], max_abs_err=fc_err,
+        ms=fc_ms[4096][0], plain_ms=fc_ms[4096][1]))
+
+    # the two kernels no main path calls: counted here
+    _build.reset_launches()
+    mixf_err = float((fc.fused_rotate_fir(stems, turns, 3072)
+                      - fc.fused_rotate_fir_plain(stems, turns, 3072)
+                      ).abs().max())
+    check(mixf_err < 2e-5, f"fused_rotate_fir vs plain: {mixf_err}")
+    flat4, flat_stems = x4.reshape(-1), stems.reshape(-1)
+    for name, v in (("4-minute stereo", flat4), ("stems", flat_stems)):
+        check(torch.equal(peak_kernel(v), peak_plain(v)),
+              f"peak not bit-equal ({name})")
+    direct = dict(_build.launches)
+    check(direct["fused_rotate_fir"] > 0 and direct["peak"] > 0,
+          f"direct checks did not launch: {direct}")
+    kernels.append(dict(
+        name="fused_conv_mix", route="cuda",
+        source="phaserotate_tpu_torch/csrc/fused_conv.cu",
+        replaces="phaserotate_tpu/kernels/fused_conv.py:422",
+        launches=direct["fused_rotate_fir"], max_abs_err=mixf_err,
+        ms=cuda_ms(lambda: fc.fused_rotate_fir(stems, turns, 3072)),
+        plain_ms=cuda_ms(lambda: fc.fused_rotate_fir_plain(stems, turns,
+                                                           3072), 2)))
+    kernels.append(dict(
+        name="peak", route="cuda",
+        source="phaserotate_tpu_torch/csrc/rotate_peak.cu",
+        replaces="phaserotate_tpu/kernels/rotate_peak.py:56",
+        launches=direct["peak"], max_abs_err=0.0,
+        ms=cuda_ms(lambda: peak_kernel(flat_stems)),
+        plain_ms=cuda_ms(lambda: peak_plain(flat_stems), 2)))
+
     for k in kernels:
         print(f"kernel {k['name']}: {k['ms']!r} ms, plain {k['plain_ms']!r} "
               f"ms, max_abs_err {k['max_abs_err']!r} [{card}]")
@@ -379,6 +611,16 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
           f"[{card}]")
     print(f"rotate fir: {64 * 60 / times['rotate_fir_64x60s']:.1f}x realtime "
           f"(64 mono 60 s stems) [{card}]")
+    for name in ("hilbert_fir_64x60s", "offline_rotator_firlen16128_64x60s"):
+        print(f"{name}: {64 * 60 / times[name]:.1f}x realtime [{card}]")
+    print(f"rotate_streamed: {2 * 240 / times['rotate_streamed_4min']:.1f}x "
+          f"realtime (2 x 4 min) [{card}]")
+    rt_secs = n_rt / RATE
+    rt_wall = times["phase_rotator_stereo_60s"]
+    print(f"PhaseRotator stereo: {rt_secs / rt_wall:.2f}x realtime, "
+          f"{1e3 * rt_wall / len(block_degs):.4f} "
+          f"ms per 1024-sample host block (budget "
+          f"{1e3 * 1024 / RATE:.4f} ms) [{card}]")
     check("jax" not in sys.modules and "phaserotate_tpu" not in sys.modules,
           "JAX was imported")
     print(f"peak device memory: {torch.cuda.max_memory_allocated()} bytes")

@@ -7,12 +7,15 @@ hot loops run in hand-written Hopper kernels (``csrc/``, built with
 PyTorch versions.  The JAX package ``phaserotate_tpu`` is the reference
 this port is tested against; nothing here imports it or JAX.
 
-Public surface (the analyze -> apply main path):
+Public surface:
 
 * :func:`rotate` — rotate(audio, degrees, method="spectral"|"fir").
 * :func:`rotate_fir` — the plugin's windowed-FIR rotation.
 * :func:`find_min_peak_angle` — the CLI's coarse-to-fine min-peak search.
 * :func:`apply_angles` — the CLI's offline apply path.
+* :class:`PhaseRotator`, :class:`StreamingRotator` — the plugin-role
+  streaming engine (any host block size, meters, checkpoint/resume).
+* :class:`OfflineRotator`, :class:`AngleAnalyzer` — the offline models.
 """
 
 from .ops import rotate, rotate_fir
@@ -22,3 +25,21 @@ __version__ = "0.1.0"
 
 __all__ = ["apply_angles", "find_min_peak_angle", "rotate", "rotate_fir",
            "__version__"]
+
+_LAZY = {
+    "PhaseRotator": "models",
+    "OfflineRotator": "models",
+    "AngleAnalyzer": "models",
+    "StreamingRotator": "stream",
+}
+__all__ += sorted(_LAZY)
+
+
+def __getattr__(name):
+    """Lazy top-level access to the model classes."""
+    if name in _LAZY:
+        import importlib
+
+        mod = importlib.import_module(f".{_LAZY[name]}", __name__)
+        return getattr(mod, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

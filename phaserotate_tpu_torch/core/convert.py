@@ -8,11 +8,17 @@ JAX package keeps spectra in a real/imag ("ri") float32 layout
 :func:`constants_from_jax` turns the JAX package's numpy arrays into the
 port's tensors; :func:`port_constants` builds the same dictionary from the
 port's own designers.  The two agree bit for bit.
+
+The streaming and meter states cross over the same way:
+:func:`stream_state_from_jax` / :func:`meter_state_from_jax` take the JAX
+package's state fields as numpy arrays (``spec_hist`` in the ri layout)
+and return the port's dataclasses; :func:`stream_state_to_jax` /
+:func:`meter_state_to_jax` are their inverses (the checkpoint format).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -20,7 +26,9 @@ import torch
 from .angles import _all_angle_cos_sin_np, _sincos_lut_np
 from .fir import _design_hilbert_fir_np, _partition_fir_spectra_np
 
-__all__ = ["constants_from_jax", "port_constants"]
+__all__ = ["constants_from_jax", "meter_state_from_jax",
+           "meter_state_to_jax", "port_constants", "stream_state_from_jax",
+           "stream_state_to_jax"]
 
 
 def _real(a: np.ndarray, device) -> torch.Tensor:
@@ -67,3 +75,53 @@ def port_constants(fir_taps: int, parsiz: int,
         "sincos_lut": torch.tensor(np.stack(_sincos_lut_np()), device=device),
         "cos_sin": torch.tensor(_all_angle_cos_sin_np(), device=device),
     }
+
+
+def stream_state_from_jax(arrays: Mapping[str, np.ndarray], device=None):
+    """The JAX package's ``StreamState`` fields (numpy; ``spec_hist``
+    (..., n_segm, P+1, 2) ri) -> the port's ``StreamState`` on
+    ``device`` (``spec_hist`` complex64)."""
+    from ..stream.engine import StreamState
+
+    return StreamState(
+        spec_hist=_ri_to_complex(arrays["spec_hist"], device),
+        time_hist=_real(arrays["time_hist"], device),
+        tail=_real(arrays["tail"], device),
+        angle=_real(arrays["angle"], device),
+    )
+
+
+def stream_state_to_jax(state) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`stream_state_from_jax`: numpy fields in the JAX
+    package's layout."""
+    spec = state.spec_hist.detach().cpu()
+    return {
+        "spec_hist": np.stack([spec.real.numpy(), spec.imag.numpy()],
+                              axis=-1).astype(np.float32),
+        "time_hist": state.time_hist.detach().cpu().numpy(),
+        "tail": state.tail.detach().cpu().numpy(),
+        "angle": state.angle.detach().cpu().numpy(),
+    }
+
+
+_METER_INT_FIELDS = ("holdcnt", "reset_delay")
+_METER_FIELDS = ("momentary", "peak", "holdcnt", "diff", "reset_delay",
+                 "dly")
+
+
+def meter_state_from_jax(arrays: Mapping[str, np.ndarray], device=None):
+    """The JAX package's ``MeterState`` fields (numpy) -> the port's
+    ``MeterState`` on ``device``."""
+    from ..meter.meter import MeterState
+
+    def conv(name):
+        dtype = np.int32 if name in _METER_INT_FIELDS else np.float32
+        return torch.tensor(np.asarray(arrays[name], dtype), device=device)
+
+    return MeterState(**{f: conv(f) for f in _METER_FIELDS})
+
+
+def meter_state_to_jax(state) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`meter_state_from_jax`."""
+    return {f: getattr(state, f).detach().cpu().numpy()
+            for f in _METER_FIELDS}

@@ -40,6 +40,8 @@
 //     irfft discards them.
 //   - Mix mode rounds cos*dry + sin*h with __fmul_rn / __fadd_rn like the
 //     plain PyTorch version; sincosf is full precision (no fast math).
+//   - Rows times frame tiles ride gridDim.x, so any number of rows fits
+//     one launch.
 
 #include <cuda_runtime.h>
 
@@ -61,11 +63,11 @@ __device__ __forceinline__ void load_twiddles(float2* tw_s,
 // Pass 1: spec[b, f, k] = sum_n frames[b, f, n] * e^{-2*pi*j*n*k/512}.
 __global__ void __launch_bounds__(kThreads)
 dft_forward(const float* __restrict__ frames, const float2* __restrict__ twiddle,
-            float2* __restrict__ spec, int n_frames) {
+            float2* __restrict__ spec, int n_frames, int tiles) {
   __shared__ __align__(16) float x_s[kFwdTile][kP];
   __shared__ float2 tw_s[kFftLen];
-  const int b = blockIdx.y;
-  const int f0 = blockIdx.x * kFwdTile;
+  const int b = blockIdx.x / tiles;
+  const int f0 = (blockIdx.x % tiles) * kFwdTile;
   const long long base = static_cast<long long>(b) * n_frames;
   for (int i = threadIdx.x; i < kFwdTile * kP; i += kThreads) {
     const int f = i / kP, n = i % kP;
@@ -109,13 +111,13 @@ __global__ void __launch_bounds__(kThreads)
 conv_mix(const float* __restrict__ frames, const float2* __restrict__ fir,
          const float2* __restrict__ twiddle, const float2* __restrict__ angs,
          const float2* __restrict__ spec, float* __restrict__ out,
-         int n_frames, int ns, int d_frames) {
+         int n_frames, int ns, int d_frames, int tiles) {
   // u_s[f][k/2] holds bins (k, k+1) of frame f0-1+f as
   // (c_k*Re, -c_k*Im, c_k1*Re, -c_k1*Im), the inverse weights folded in
   __shared__ float4 u_s[kConvTile + 1][kBins / 2];
   __shared__ float2 tw_s[kFftLen];
-  const int b = blockIdx.y;
-  const int f0 = blockIdx.x * kConvTile;
+  const int b = blockIdx.x / tiles;
+  const int f0 = (blockIdx.x % tiles) * kConvTile;
   const long long base = static_cast<long long>(b) * n_frames;
   load_twiddles(tw_s, twiddle);
 
@@ -197,19 +199,24 @@ extern "C" int prt_stream_conv(const float* frames, const float* fir,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float2* tw = reinterpret_cast<const float2*>(twiddle);
   float2* sp = reinterpret_cast<float2*>(spec);
-  const dim3 grid1((n_frames + kFwdTile - 1) / kFwdTile, batch);
-  dft_forward<<<grid1, kThreads, 0, st>>>(frames, tw, sp, n_frames);
+  const int tiles1 = (n_frames + kFwdTile - 1) / kFwdTile;
+  const int tiles2 = (n_frames + kConvTile - 1) / kConvTile;
+  if (static_cast<long long>(tiles2) * batch > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  dft_forward<<<tiles1 * batch, kThreads, 0, st>>>(frames, tw, sp, n_frames,
+                                                   tiles1);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid2((n_frames + kConvTile - 1) / kConvTile, batch);
+  const unsigned grid2 = static_cast<unsigned>(tiles2) * batch;
   const float2* f2 = reinterpret_cast<const float2*>(fir);
   if (angs != nullptr) {
     conv_mix<true><<<grid2, kThreads, 0, st>>>(
         frames, f2, tw, reinterpret_cast<const float2*>(angs), sp, out,
-        n_frames, ns, d_frames);
+        n_frames, ns, d_frames, tiles2);
   } else {
     conv_mix<false><<<grid2, kThreads, 0, st>>>(
-        frames, f2, tw, nullptr, sp, out, n_frames, ns, d_frames);
+        frames, f2, tw, nullptr, sp, out, n_frames, ns, d_frames, tiles2);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,22 @@
 """Hand-written Hopper kernels (``csrc/``) and their plain PyTorch twins."""
 
 from ._build import launches, reset_launches
-from .rotate_peak import rotate_peak_sweep_kernel, rotate_peak_sweep_plain
+from .fused_conv import (
+    fused_hilbert,
+    fused_ola_conv,
+    fused_ola_conv_plain,
+    fused_rotate_fir,
+    fused_rotate_fir_plain,
+)
+from .rotate_peak import (
+    peak_kernel,
+    peak_plain,
+    rotate_peak_sweep_kernel,
+    rotate_peak_sweep_plain,
+)
 from .stream_conv import (
+    fused_stream_mix,
+    fused_stream_mix_plain,
     hilbert_small,
     hilbert_small_plain,
     rotate_small,
@@ -10,9 +24,18 @@ from .stream_conv import (
 )
 
 __all__ = [
+    "fused_hilbert",
+    "fused_ola_conv",
+    "fused_ola_conv_plain",
+    "fused_rotate_fir",
+    "fused_rotate_fir_plain",
+    "fused_stream_mix",
+    "fused_stream_mix_plain",
     "hilbert_small",
     "hilbert_small_plain",
     "launches",
+    "peak_kernel",
+    "peak_plain",
     "reset_launches",
     "rotate_peak_sweep_kernel",
     "rotate_peak_sweep_plain",

@@ -23,13 +23,15 @@ __all__ = ["BUILD_DIR", "build", "check", "count_launch", "launches", "lib",
            "reset_launches"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("rotate_peak.cu", "stream_conv.cu")
+_SOURCES = ("fused_conv.cu", "rotate_peak.cu", "stream_conv.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "phaserotate_tpu_torch"
 # no --use_fast_math: sincosf must stay full precision
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-launches = {"rotate_peak_sweep": 0, "hilbert_small": 0, "rotate_small": 0}
+launches = {"rotate_peak_sweep": 0, "hilbert_small": 0, "rotate_small": 0,
+            "stream_mix": 0, "fused_hilbert": 0, "fused_rotate_fir": 0,
+            "peak": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -45,6 +47,12 @@ _SIGNATURES = {
     # scratch, out, batch, n_frames, n_segm, dry delay in frames, stream
     "prt_stream_conv": (_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                         ctypes.c_int, ctypes.c_int, _P),
+    # frames, FIR spectrum, twiddles, (ca, sa) per row (or NULL), tail
+    # scratch, out, rows, n_blocks, parsiz, dry delay, stream
+    "prt_fused_conv": (_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, _P),
+    # x, n, out, stream
+    "prt_peak": (_P, ctypes.c_longlong, _P, _P),
 }
 
 

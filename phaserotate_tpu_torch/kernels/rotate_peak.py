@@ -1,10 +1,11 @@
-"""The all-angle rotated-peak sweep: CUDA kernel wrapper and plain twin.
+"""The all-angle rotated-peak sweep and the peak scan: CUDA kernel
+wrappers and plain twins.
 
 Counterpart of ``phaserotate_tpu/kernels/rotate_peak.py``
-``rotate_peak_sweep_kernel``; the kernel is ``csrc/rotate_peak.cu``.  On a
-CPU tensor the wrapper runs the plain PyTorch version
-(:func:`rotate_peak_sweep_plain`); on a CUDA tensor it launches the kernel
-or raises.
+``rotate_peak_sweep_kernel`` and ``peak_kernel``; the kernels are in
+``csrc/rotate_peak.cu``.  On a CPU tensor each wrapper runs its plain
+PyTorch version (:func:`rotate_peak_sweep_plain`, :func:`peak_plain`); on
+a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ import torch
 from ..ops.peak import rotated_peak_sweep as rotate_peak_sweep_plain
 from . import _build
 
-__all__ = ["rotate_peak_sweep_kernel", "rotate_peak_sweep_plain"]
+__all__ = ["peak_kernel", "peak_plain", "rotate_peak_sweep_kernel",
+           "rotate_peak_sweep_plain"]
 
 _MAX_ANGLES = 512  # four angles per thread of a 128-thread block
 _MAX_TILE = 4096   # (b0, b1) tile in 32 KiB of static-sized shared memory
@@ -62,8 +64,6 @@ def rotate_peak_sweep_kernel(
     n = b0.shape[-1]
     r0, r1 = _rows(b0, n), _rows(b1, n)
     rows = r0.shape[0]
-    if rows > 65535:
-        raise ValueError(f"at most 65535 rows per launch, got {rows}")
     cs = cos_sin.contiguous()
     out = torch.zeros((rows, a), dtype=torch.float32, device=b0.device)
     if rows == 0 or n == 0:
@@ -76,3 +76,34 @@ def rotate_peak_sweep_kernel(
     _build.check(err, "rotate_peak_sweep")
     _build.count_launch("rotate_peak_sweep")
     return out.reshape(*lead, a)
+
+
+def peak_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`peak_kernel`: ``max|x|``, +0 for no samples."""
+    return x.abs().max() if x.numel() else x.new_zeros(())
+
+
+def peak_kernel(x: torch.Tensor) -> torch.Tensor:
+    """``max(|x|)`` of a 1-D float32 signal as a 0-d tensor (the
+    reference's dsp_compute_peak, cli/dsp_peak_calc.h:27).
+
+    Bit-equal to ``x.abs().max()``; a NaN anywhere gives NaN.
+    """
+    if x.ndim != 1:
+        raise ValueError(f"expected a 1-D signal, got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return peak_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"expected a CPU or CUDA tensor, got {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"expected float32, got {x.dtype}")
+    x = x.contiguous()
+    out = torch.zeros((), dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        return out
+    err = _build.lib().prt_peak(
+        x.data_ptr(), x.numel(), out.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "peak")
+    _build.count_launch("peak")
+    return out

@@ -9,8 +9,10 @@ convolution ``(fir * x)[m]``), so every FIR of 512..16384 taps in steps of
 * :func:`hilbert_small` — conv-only mode, the Hilbert half of the
   analyzer's sweep and apply (``fused_hilbert_small``).
 * :func:`rotate_small` — steady-angle mix mode, the FIR rotate
-  (``fused_rotate_small``).  The kernel takes per-frame (angle, slope)
-  pairs, the input the streaming engine's ``fused_stream_mix`` needs.
+  (``fused_rotate_small``).
+* :func:`fused_stream_mix` — mix mode with the per-sample angle ramp from
+  per-frame (angle, slope) pairs, the streaming engine's whole block body
+  (``fused_stream_mix``).
 
 On a CPU tensor each wrapper runs its plain twin; on a CUDA tensor it
 launches the kernel or raises.
@@ -30,6 +32,8 @@ from . import _build
 
 __all__ = [
     "P",
+    "fused_stream_mix",
+    "fused_stream_mix_plain",
     "small_conv_supported",
     "stream_mix_supported",
     "hilbert_small",
@@ -97,8 +101,6 @@ def _launch(frames: torch.Tensor, fir_taps: int,
     (B, n_frames, 2) the output is mixed against the input delayed by
     fir_taps/2."""
     b, n_frames, _ = frames.shape
-    if b > 65535:
-        raise ValueError(f"at most 65535 rows per launch, got {b}")
     dev = frames.device
     d_frames = (fir_taps // 2) // P if angs is not None else 0
     fir = _fir_parts(fir_taps, dev)
@@ -181,3 +183,60 @@ def rotate_small(x: torch.Tensor, turns, firlen: int) -> torch.Tensor:
     out = _launch(frames, firlen, angs)
     _build.count_launch("rotate_small")
     return out.reshape(b, n_frames * P)[:, lat : lat + n].reshape(*lead, n)
+
+
+def fused_stream_mix_plain(frames: torch.Tensor, angle_params: torch.Tensor,
+                           firlen: int) -> torch.Tensor:
+    """Plain twin of :func:`fused_stream_mix`: ``partitioned_convolve`` at
+    P, the dry signal delayed by ``firlen/2``, and the per-sample ramp
+    ``rad = (angle + slope*i) * 2*pi`` rounded like the kernel."""
+    b, n_frames, _ = frames.shape
+    x = frames.reshape(b, n_frames * P)
+    spectra = partition_fir_spectra(firlen, P, frames.device)
+    h = partitioned_convolve(x, spectra, P)[:, : n_frames * P]
+    lat = firlen // 2
+    dry = torch.nn.functional.pad(x, (lat, 0))[:, : n_frames * P]
+    idx = torch.arange(P, dtype=torch.float32, device=frames.device)
+    a = angle_params.to(torch.float32)
+    rad = (a[..., :1] + a[..., 1:] * idx) * float(_TWO_PI)
+    h = h.reshape(b, n_frames, P)
+    dry = dry.reshape(b, n_frames, P)
+    return torch.cos(rad) * dry + torch.sin(rad) * h
+
+
+def fused_stream_mix(frames: torch.Tensor, angle_params: torch.Tensor,
+                     firlen: int) -> torch.Tensor:
+    """The complete streaming block body in one kernel pass:
+
+        out[m] = cos(rad_m)*x[m - firlen/2] + sin(rad_m)*(fir*x)[m]
+
+    with the per-sample angle ramp ``rad_m`` from per-frame
+    ``angle_params`` (src/phaserotate.c:664-717).
+
+    Args:
+      frames: (B, n_frames, P) float32, the internal 256-sample framing of
+        the input stream (plugin parsiz blocks are exact multiples).
+      angle_params: (B, n_frames, 2) float32 per-frame (pre-frame angle in
+        negated turns, per-sample slope), as
+        ``stream.engine._internal_angle_params`` makes them.
+      firlen: plugin FIR length (3072/4096/8192).
+
+    Returns (B, n_frames, P) mixed output frames.
+    """
+    if not stream_mix_supported(firlen):
+        raise ValueError(f"mix unsupported for firlen {firlen}")
+    if frames.ndim != 3 or frames.shape[-1] != P:
+        raise ValueError(f"frames must be (B, n_frames, {P}), got "
+                         f"{tuple(frames.shape)}")
+    if angle_params.shape != (*frames.shape[:2], 2):
+        raise ValueError(f"angle_params must be {(*frames.shape[:2], 2)}, "
+                         f"got {tuple(angle_params.shape)}")
+    if frames.device.type == "cpu":
+        return fused_stream_mix_plain(frames, angle_params, firlen)
+    _require_cuda_f32(frames)
+    if angle_params.dtype != torch.float32 or \
+            angle_params.device != frames.device:
+        raise TypeError("angle_params must be float32 on the frames' device")
+    out = _launch(frames.contiguous(), firlen, angle_params.contiguous())
+    _build.count_launch("stream_mix")
+    return out

@@ -8,15 +8,15 @@ degrees multiplies every positive-frequency component by ``e^{-j*theta}``
   complex rotation, inverse FFT.  DC and Nyquist scale by cos(theta).
 * ``fir`` — the plugin's windowed-FIR filter (src/phaserotate.c:374-401 +
   640-717), time-aligned.  On CUDA it runs the stream_conv kernel in mix
-  mode for every FIR the kernel can frame.
+  mode for every FIR that kernel can frame, and the fused_conv kernel for
+  the other FIRs up to 16384 taps.
 
 Both take batched input ``(..., n)`` and ``degrees`` broadcastable to the
 leading dims.
 
 Dispatch follows the JAX package's: where JAX on a TPU takes a Pallas
 kernel the port on CUDA takes its CUDA kernel, and where JAX takes plain
-XLA the port takes plain torch.  The single-partition ``fused_conv`` kernel
-is not ported yet, so what JAX would send there raises on CUDA.
+XLA the port takes plain torch.
 """
 
 from __future__ import annotations
@@ -28,27 +28,21 @@ import torch
 from ..core import angles as _angles
 from ..core import sizes as _sizes
 from ..core.fir import partition_fir_spectra
+from ..kernels.fused_conv import (
+    fused_hilbert,
+    fused_parsiz_for,
+    fused_rotate_fir,
+    mix_supported,
+    supported_parsiz,
+)
 from ..kernels.stream_conv import rotate_small, stream_mix_supported
 from .convolve import partitioned_convolve
 
 __all__ = ["rotate", "rotate_spectral", "rotate_fir", "hilbert_fir"]
 
-_FUSED_CONV_TODO = (
-    "the single-partition FIR convolution kernel (phaserotate_tpu/kernels/"
-    "fused_conv.py) is not ported to CUDA yet: ROADMAP.md, TPU kernels to "
-    "port, item 5")
-
 
 def _as_f32(audio, device) -> torch.Tensor:
     return torch.as_tensor(audio, dtype=torch.float32, device=device)
-
-
-def _fused_conv_covers(firlen: int) -> bool:
-    """True where JAX on a TPU runs ``fused_conv`` for a FIR of
-    ``firlen`` taps: its single partition, the next power of two from
-    2048, is at most 16384 (fused_conv.supported_parsiz/fused_parsiz_for).
-    """
-    return firlen <= 16384
 
 
 def _theta(degrees, device) -> torch.Tensor:
@@ -80,13 +74,15 @@ def hilbert_fir(audio, firlen: int, device=None) -> torch.Tensor:
 
     Returns ``g(x)``, the *negative* Hilbert transformer's approximation
     (core/fir.py) with its group delay of ``firlen/2`` compensated.
-    Single-partition OLA on ``torch.fft``; on CUDA that is the plain path
-    only where the JAX package also leaves it to plain XLA.
+    On CUDA the fused_conv kernel runs every FIR up to 16384 taps;
+    elsewhere, and above that, the single-partition OLA on ``torch.fft``
+    (as the JAX package leaves those to plain XLA).
     """
     x = _as_f32(audio, device)
-    if x.device.type == "cuda" and _fused_conv_covers(firlen):
-        raise NotImplementedError(_FUSED_CONV_TODO)
     lat = firlen // 2
+    if x.device.type == "cuda" and supported_parsiz(fused_parsiz_for(firlen)):
+        full = fused_hilbert(x, firlen)
+        return full[..., lat : lat + x.shape[-1]]
     spectra = partition_fir_spectra(firlen, firlen, x.device)
     full = partitioned_convolve(x, spectra, firlen)
     return full[..., lat : lat + x.shape[-1]]
@@ -95,8 +91,8 @@ def hilbert_fir(audio, firlen: int, device=None) -> torch.Tensor:
 def _rotate_fir_impl(x: torch.Tensor, turns: torch.Tensor, firlen: int):
     if stream_mix_supported(firlen):
         return rotate_small(x, turns, firlen)
-    if x.device.type == "cuda" and _fused_conv_covers(firlen):
-        raise NotImplementedError(_FUSED_CONV_TODO)
+    if x.device.type == "cuda" and mix_supported(firlen):
+        return fused_rotate_fir(x, turns, firlen)
     sa, ca = _angles.sin_cos_turns(turns)
     h = hilbert_fir(x, firlen)
     return ca[..., None] * x + sa[..., None] * h

@@ -119,6 +119,16 @@ def test_port_runs_without_jax():
         "res = pr.find_min_peak_angle(x, rate=48000)\n"
         "y = pr.rotate(x, 35.0, method='fir')\n"
         "assert y.shape == x.shape and len(res.angles_units) == 2\n"
+        "from phaserotate_tpu_torch import meter, models, stream\n"
+        "from phaserotate_tpu_torch.kernels import fused_conv\n"
+        "rot = pr.PhaseRotator(rate=48000, channels=2)\n"
+        "assert rot.process(x, 35.0).shape == x.shape\n"
+        "h = fused_conv.fused_hilbert(pr.rotate(x, 0.0), 3072)\n"
+        "assert h.shape[-1] >= x.shape[-1]\n"
+        "s = stream.rotate_streamed(x[0], 35.0)\n"
+        "an = pr.AngleAnalyzer(rate=48000)\n"
+        "assert an.analyze(x).angles_units == res.angles_units\n"
+        "assert float(rot.levels(1).out_peak) > 0\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'jax' or m.startswith(('jax.', 'phaserotate_tpu.'))\n"
         "       or m == 'phaserotate_tpu']\n"

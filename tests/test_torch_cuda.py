@@ -14,13 +14,20 @@ import torch
 
 from phaserotate_tpu_torch.core.angles import all_angle_cos_sin
 from phaserotate_tpu_torch.core.angles import degrees_to_turns
+from phaserotate_tpu_torch.core.sizes import stream_geometry_for_rate
 from phaserotate_tpu_torch.kernels import _build
+from phaserotate_tpu_torch.kernels import fused_conv as fc
 from phaserotate_tpu_torch.kernels import stream_conv as sc
 from phaserotate_tpu_torch.kernels.rotate_peak import (
+    peak_kernel,
     rotate_peak_sweep_kernel,
     rotate_peak_sweep_plain,
 )
 from phaserotate_tpu_torch.ops.rotate import hilbert_fir, rotate_fir
+from phaserotate_tpu_torch.stream.engine import (
+    _internal_angle_params,
+    angle_sequence,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -68,12 +75,123 @@ def test_launches_counted(x):
     sc.hilbert_small(x, 1024)
     sc.rotate_small(x, degrees_to_turns(10.0, device=x.device), 3072)
     rotate_peak_sweep_kernel(x, x, all_angle_cos_sin(x.device))
-    assert _build.launches == {"rotate_peak_sweep": 1, "hilbert_small": 1,
-                               "rotate_small": 1}
+    hilbert_fir(x, 3072)
+    fc.fused_rotate_fir(x, degrees_to_turns(10.0, device=x.device), 3072)
+    peak_kernel(x[0])
+    frames = x[:, : 78 * sc.P].reshape(3, 78, sc.P)
+    sc.fused_stream_mix(frames, torch.zeros(3, 78, 2, device=x.device), 3072)
+    assert _build.launches == {
+        "rotate_peak_sweep": 1, "hilbert_small": 1, "rotate_small": 1,
+        "stream_mix": 1, "fused_hilbert": 1, "fused_rotate_fir": 1,
+        "peak": 1}
 
 
-def test_unported_fused_conv_raises(x):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hilbert_fir(x, 3072)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rotate_fir(x, 30.0, firlen=2816)  # 11 frames: not 512-aligned
+def test_rows_beyond_65535(dev):
+    """Rows ride gridDim.x: 65536 + 7 rows in one launch."""
+    rng = np.random.default_rng(7)
+    rows = 65536 + 7
+    xs = torch.from_numpy(
+        rng.standard_normal((rows, 300)).astype(np.float32)).to(dev)
+    got = sc.hilbert_small(xs, 512)
+    assert (got - sc.hilbert_small_plain(xs, 512)).abs().max() < 1e-5
+    cs = all_angle_cos_sin(dev)
+    assert torch.equal(rotate_peak_sweep_kernel(xs[:, 1:], xs[:, :-1], cs),
+                       rotate_peak_sweep_plain(xs[:, 1:], xs[:, :-1], cs))
+
+
+@pytest.mark.parametrize("parsiz", [2048, 4096, 8192, 16384])
+def test_fused_conv_conv_mode(x, parsiz):
+    """Against the single-partition OLA on torch.fft, at the JAX suite's
+    budgets (tests/test_kernels.py:67, 172)."""
+    n_blocks = -(-x.shape[-1] // parsiz) + 1
+    frames = torch.nn.functional.pad(
+        x, (0, n_blocks * parsiz - x.shape[-1])).reshape(3, n_blocks, parsiz)
+    for firlen in {parsiz // 2, parsiz - 1024, parsiz}:
+        spec = fc.hilbert_fir_spectrum(firlen, parsiz, x.device)
+        got = fc.fused_ola_conv(frames, spec, parsiz)
+        want = fc.fused_ola_conv_plain(frames, spec, parsiz)
+        assert got.shape == want.shape
+        tol = 3e-6 if parsiz <= 4096 else 1e-5
+        assert (got - want).abs().max().item() < tol, firlen
+
+
+@pytest.mark.parametrize("firlen", [1024, 3072, 8192, 16384])
+def test_fused_conv_mix_mode(x, firlen):
+    assert fc.mix_supported(firlen)
+    turns = degrees_to_turns([0.0, 35.0, -120.0], device=x.device)
+    got = fc.fused_rotate_fir(x, turns, firlen)
+    want = fc.fused_rotate_fir_plain(x, turns, firlen)
+    assert got.shape == x.shape
+    assert (got - want).abs().max().item() < 2e-5
+    assert torch.equal(got[0], x[0])  # cos 0 = 1, sin 0 = 0 exactly
+
+
+def test_peak_kernel_bit_equal(dev):
+    rng = np.random.default_rng(11)
+    big = torch.from_numpy(
+        rng.standard_normal(1_000_003).astype(np.float32)).to(dev)
+    for n in (1, 3, 100, 65536, 100001, 1_000_003):
+        for off in (0, 1, 2, 3):
+            v = big[off : off + n]
+            assert torch.equal(peak_kernel(v), v.abs().max()), (n, off)
+    v = big.clone()
+    v[777] = -9.5
+    assert peak_kernel(v).item() == 9.5
+    v[123457] = float("nan")
+    assert torch.isnan(peak_kernel(v))
+    assert peak_kernel(big[:0]).item() == 0.0
+
+
+def test_fused_stream_mix_ramp(dev):
+    """The per-sample angle ramp (nonzero slopes) against its plain twin."""
+    geom = stream_geometry_for_rate(48000)
+    rng = np.random.default_rng(3)
+    n_frames = 400
+    targets = np.repeat(rng.uniform(-180, 180, n_frames // 50),
+                        50).astype(np.float32)
+    angles, das, interp, _ = angle_sequence(np.float32(0.0), targets, geom)
+    assert interp.any() and (das != 0).any()
+    params = torch.from_numpy(
+        _internal_angle_params(angles, das, geom)).to(dev)[None]
+    frames = torch.from_numpy(rng.standard_normal(
+        (1, params.shape[1], sc.P)).astype(np.float32)).to(dev)
+    got = sc.fused_stream_mix(frames, params, geom.firlen)
+    want = sc.fused_stream_mix_plain(frames, params, geom.firlen)
+    assert (got - want).abs().max().item() < 1e-5
+
+
+def test_hilbert_fir_and_rotate_fir_run_fused_conv(x):
+    _build.reset_launches()
+    h = hilbert_fir(x, 3072)
+    y = rotate_fir(x, 30.0, firlen=2816)  # rows not 8-aligned: no mix
+    assert _build.launches["fused_hilbert"] == 2
+    xc = x.cpu()
+    assert (h.cpu() - hilbert_fir(xc, 3072)).abs().max() < 1e-5
+    assert (y.cpu() - rotate_fir(xc, 30.0, firlen=2816)).abs().max() < 1e-5
+
+
+def test_phase_rotator_on_card(dev):
+    """The streaming model on the card: equal to the CPU run, host block
+    size independent, and pipelined mode an exact D*parsiz delay (the
+    pinned-buffer copies)."""
+    from phaserotate_tpu_torch.models import PhaseRotator
+    from phaserotate_tpu_torch.stream import StreamingRotator
+
+    rng = np.random.default_rng(5)
+    x = (0.5 * rng.standard_normal((2, 40 * 256 + 77))).astype(np.float32)
+
+    def run(rot, block):
+        return np.concatenate(
+            [rot.process(x[:, i : i + block], 35.0 if i < 5000 else -60.0)
+             for i in range(0, x.shape[1], block)], axis=1)
+
+    y = run(PhaseRotator(rate=48000, channels=2, device=dev), 1024)
+    np.testing.assert_allclose(
+        y, run(PhaseRotator(rate=48000, channels=2), 1024), atol=1e-5)
+    np.testing.assert_array_equal(
+        run(PhaseRotator(rate=48000, channels=2, device=dev), 333), y)
+    piped = StreamingRotator(rate=48000, channels=2, pipeline_depth=3,
+                             device=dev)
+    d = 3 * 256
+    y3 = run(piped, 333)
+    np.testing.assert_array_equal(y3[:, d:], y[:, :-d])
