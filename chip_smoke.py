@@ -28,7 +28,9 @@ then, on the first CUDA device:
    mixes < 2e-5, fused_conv at every supported partition size), counting
    the two kernels no main path calls (``fused_rotate_fir``, ``peak``);
 5. prints the wall time of each phase and each kernel's time beside its
-   plain version's, with the card's name and power limit.
+   plain version's, with the card's name and power limit (fused_conv's
+   entry also carries both times at its two main-path partition sizes,
+   4096 and 16384, under ``ms_by_parsiz``).
 
 The line before the last is a JSON object of the kernels; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -569,7 +571,9 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
         source="phaserotate_tpu_torch/csrc/fused_conv.cu",
         replaces="phaserotate_tpu/kernels/fused_conv.py:375",
         launches=launches["fused_hilbert"], max_abs_err=fc_err,
-        ms=fc_ms[4096][0], plain_ms=fc_ms[4096][1]))
+        ms=fc_ms[4096][0], plain_ms=fc_ms[4096][1],
+        ms_by_parsiz={str(p): dict(ms=k, plain_ms=pl)
+                      for p, (k, pl) in fc_ms.items()}))
 
     # the two kernels no main path calls: counted here
     _build.reset_launches()

@@ -47,10 +47,11 @@ _SIGNATURES = {
     # scratch, out, batch, n_frames, n_segm, dry delay in frames, stream
     "prt_stream_conv": (_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                         ctypes.c_int, ctypes.c_int, _P),
-    # frames, FIR spectrum, twiddles, (ca, sa) per row (or NULL), tail
-    # scratch, out, rows, n_blocks, parsiz, dry delay, stream
-    "prt_fused_conv": (_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, _P),
+    # frames, FIR spectrum in position order, pass twiddles, product
+    # twiddles, (ca, sa) per row (or NULL), tail scratch, out, rows,
+    # n_blocks, parsiz, dry delay, stream
+    "prt_fused_conv": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
     # x, n, out, stream
     "prt_peak": (_P, ctypes.c_longlong, _P, _P),
 }

@@ -9,8 +9,11 @@ with the Hilbert FIR zero-padded to one ``parsiz``-tap partition, in
 conv-only mode (:func:`fused_ola_conv`, :func:`fused_hilbert`) and with the
 rotation mix fused in (:func:`fused_rotate_fir`).  The FIR arrives as a
 plain complex64 half spectrum (:func:`hilbert_fir_spectrum`): the TPU
-kernel's ``[k1][k2]`` matrix layout has no counterpart here.  The support
-tables are the JAX package's, so dispatch is the same.
+kernel's ``[k1][k2]`` matrix layout has no counterpart here; the wrapper
+hands the CUDA kernel that spectrum, and the twiddles of its spectrum
+product, permuted into the order in which the kernel walks them
+(:func:`_product_tables`).  The support tables are the JAX package's, so
+dispatch is the same.
 
 On a CPU tensor each wrapper runs its plain twin (``torch.fft``); on a
 CUDA tensor it launches the kernel or raises.
@@ -91,13 +94,67 @@ def hilbert_fir_spectrum(firlen: int, parsiz: int,
                         device=device)
 
 
-@functools.lru_cache(maxsize=8)
-def _twiddles(parsiz: int, device: torch.device) -> torch.Tensor:
+@functools.lru_cache(maxsize=4)
+def _twiddles_np(parsiz: int) -> np.ndarray:
     """(parsiz, 2) float32 e^{-2*pi*j*i/(2*parsiz)}, i < parsiz, computed
     in float64."""
     ang = -np.pi * np.arange(parsiz, dtype=np.float64) / parsiz
-    tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
-    return torch.tensor(tw, device=device)
+    return np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _twiddles(parsiz: int, device: torch.device) -> torch.Tensor:
+    return torch.tensor(_twiddles_np(parsiz), device=device)
+
+
+def _bitrev(i: np.ndarray, bits: int) -> np.ndarray:
+    out = np.zeros_like(i)
+    for b in range(bits):
+        out |= ((i >> b) & 1) << (bits - 1 - b)
+    return out
+
+
+@functools.lru_cache(maxsize=4)
+def _product_order(
+        parsiz: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The kernel's walk of the spectrum product, item u in [0, parsiz/2]:
+    the bit-reversed positions ``pk`` of X[k] and ``pmk`` of X[M - k],
+    M = parsiz, and ``k = bitrev(pk)`` <= M/2.  u = 0 is k = 0, u = M/2 is
+    k = M/2; otherwise the pair sits at ``u + hb`` and
+    ``(u + hb) ^ (2*hb - 1)``, hb the highest set bit of u, and k at the
+    even one of the two (csrc/fused_conv.cu ``spectrum_product``)."""
+    half = parsiz // 2
+    u = np.arange(half + 1, dtype=np.int64)
+    hb = np.left_shift(1, np.frexp(np.maximum(u, 1))[1] - 1)
+    flip = 2 * hb - 1
+    pk = u + hb
+    pk ^= (pk & 1) * flip
+    pmk = pk ^ flip
+    pk[0] = pmk[0] = 0
+    pk[half] = pmk[half] = 1
+    return pk, pmk, _bitrev(pk, parsiz.bit_length() - 1)
+
+
+@functools.lru_cache(maxsize=8)
+def _position_tables(parsiz: int, device: torch.device):
+    """The gather index of the FIR spectrum in bit-reversed position order
+    (``idx[p] = bitrev(p)``, p < M, and ``idx[M] = M``), and the product's
+    twiddles W_N^k in item order, (parsiz/2 + 1, 2) float32."""
+    pos = np.arange(parsiz + 1, dtype=np.int64)
+    idx = np.append(_bitrev(pos[:-1], parsiz.bit_length() - 1), parsiz)
+    wp = _twiddles_np(parsiz)[_product_order(parsiz)[2]]
+    return torch.tensor(idx, device=device), torch.tensor(wp, device=device)
+
+
+def _product_tables(spectrum: torch.Tensor,
+                    parsiz: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two tables the kernel's spectrum product reads, on the
+    spectrum's device: (parsiz+1, 2) float32 H in bit-reversed position
+    order (``H[M]`` last) and (parsiz/2 + 1, 2) float32 W_N^k in the
+    order of :func:`_product_order`.  Values are copied, not recomputed."""
+    idx, wp = _position_tables(parsiz, spectrum.device)
+    spec = torch.view_as_real(spectrum.to(torch.complex64).resolve_conj())
+    return spec[idx], wp
 
 
 def _check_frames(frames: torch.Tensor, spectrum: torch.Tensor,
@@ -121,15 +178,14 @@ def _launch(frames: torch.Tensor, spectrum: torch.Tensor, parsiz: int,
         raise TypeError("frames must be float32 on the spectrum's device")
     b, n_blocks, _ = frames.shape
     frames = frames.contiguous()
-    spec = torch.view_as_real(
-        spectrum.to(torch.complex64).resolve_conj()).contiguous()
+    spec, wp = _product_tables(spectrum, parsiz)
     tail = torch.empty_like(frames)
     out = torch.empty((b, n_blocks * parsiz), dtype=torch.float32,
                       device=dev)
     lib = _build.lib()
     err = lib.prt_fused_conv(
         frames.data_ptr(), spec.data_ptr(), _twiddles(parsiz, dev).data_ptr(),
-        None if cs is None else cs.data_ptr(), tail.data_ptr(),
+        wp.data_ptr(), None if cs is None else cs.data_ptr(), tail.data_ptr(),
         out.data_ptr(), b, n_blocks, parsiz, lat,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_conv")

@@ -115,6 +115,17 @@ def test_fused_conv_conv_mode(x, parsiz):
         assert (got - want).abs().max().item() < tol, firlen
 
 
+@pytest.mark.parametrize("parsiz", [2048, 4096, 8192, 16384])
+def test_fused_conv_product_tables_on_card(dev, parsiz):
+    """The FIR spectrum and twiddles the kernel's spectrum product reads,
+    permuted into its position order on the card, equal the CPU's."""
+    spec = fc.hilbert_fir_spectrum(parsiz - 1024, parsiz)
+    h, wp = fc._product_tables(spec, parsiz)
+    h_dev, wp_dev = fc._product_tables(spec.to(dev), parsiz)
+    assert h_dev.device.type == wp_dev.device.type == "cuda"
+    assert torch.equal(h_dev.cpu(), h) and torch.equal(wp_dev.cpu(), wp)
+
+
 @pytest.mark.parametrize("firlen", [1024, 3072, 8192, 16384])
 def test_fused_conv_mix_mode(x, firlen):
     assert fc.mix_supported(firlen)
