@@ -27,10 +27,20 @@ then, on the first CUDA device:
    the main paths' shapes (sweep table and peak bit-equal, conv < 1e-5,
    mixes < 2e-5, fused_conv at every supported partition size), counting
    the two kernels no main path calls (``fused_rotate_fir``, ``peak``);
-5. prints the wall time of each phase and each kernel's time beside its
-   plain version's, with the card's name and power limit (fused_conv's
-   entry also carries both times at its two main-path partition sizes,
-   4096 and 16384, under ``ms_by_parsiz``).
+5. prints the wall time of each phase and, per kernel, its time beside its
+   plain version's, its bound (``bound_ms``: the larger of its bytes over
+   the H100's 3.35 TB/s and its FP32 operations over 67 TFLOP/s,
+   ``bound_by`` saying which; a convolution's operations are those its
+   function needs, the same for every kernel that computes it, not those
+   of the kernel's own algorithm) and, where one PyTorch call computes the
+   same function, that call's time (``library_ms``: cuFFT through
+   ``torch.fft`` for the convolutions, ``torch.linalg.vector_norm`` for
+   the peak; timed here only, the port never calls them), with the card's
+   name and power limit (fused_conv's entry also carries both times at its
+   two main-path partition sizes, 4096 and 16384, under ``ms_by_parsiz``).
+
+The CLI and the models run without a device argument, so the port's own
+default (the CUDA device) places the work.
 
 The line before the last is a JSON object of the kernels; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -55,6 +65,9 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 RATE = 48000
 SEED = 20240917
+# published H100 SXM peaks (NVIDIA's data sheet) for the kernels' bounds
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
 
 
 def check(cond, msg: str) -> None:
@@ -115,6 +128,49 @@ def music_batch(rng, shape, n: int, device):
     return x.to(torch.float32).reshape(*shape, n).contiguous()
 
 
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of ``nbytes`` over
+    the HBM rate and ``flops`` over the FP32 rate, and which one it is."""
+    t_bytes = float(1e3 * nbytes / HBM_BYTES_PER_S)
+    t_ops = float(1e3 * flops / FP32_FLOPS_PER_S)
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def fft_flops(m: int) -> float:
+    """5 M log2 M, an M-point complex FFT."""
+    return 5.0 * m * np.log2(m)
+
+
+def fused_conv_flops(n_frames: int, parsiz: int, mix_ops: int) -> float:
+    """The one-partition FFT overlap-add of csrc/fused_conv.cu per frame:
+    two parsiz-point complex FFTs, the untangling and packing (32
+    operations per pair of bins each), the spectrum product (6 per bin)
+    and the overlap-add (1 per sample) with ``mix_ops`` more per sample
+    (sincosf not counted)."""
+    return n_frames * (2 * fft_flops(parsiz) + 2 * 32 * (parsiz // 2)
+                       + 6 * parsiz + (1 + mix_ops) * parsiz)
+
+
+def fir_conv_flops(rows: int, n: int, firlen: int, mix_ops: int) -> float:
+    """The operations a convolution of ``rows`` signals of ``n`` samples
+    with a ``firlen``-tap FIR needs, whichever kernel computes it: the
+    one-partition overlap-add at fused_parsiz_for(firlen) over the
+    ``n + firlen/2`` input samples of a time-aligned output.  Splitting
+    the FIR into smaller partitions saves transform work but adds as much
+    multiply-accumulate work at these FIRs, so this is about the fewest;
+    stream_conv's 256-sample partitions take more."""
+    from phaserotate_tpu_torch.kernels.fused_conv import fused_parsiz_for
+
+    parsiz = fused_parsiz_for(firlen)
+    n_frames = rows * -(-(n + firlen // 2) // parsiz)
+    return fused_conv_flops(n_frames, parsiz, mix_ops)
+
+
 def cuda_ms(fn, reps: int = 5) -> float:
     """Mean device time of one call, CUDA events around ``reps`` calls
     after a warm-up call."""
@@ -130,6 +186,26 @@ def cuda_ms(fn, reps: int = 5) -> float:
     end.record()
     sync()
     return start.elapsed_time(end) / reps
+
+
+def device_split(fn) -> dict:
+    """Device ms of each CUDA kernel that one warm call of ``fn`` runs,
+    from torch.profiler: the kernel's own passes and the wrapper's
+    framing copies apart."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    split = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            split[e.key[:60]] = us / 1e3
+    return split
 
 
 @contextlib.contextmanager
@@ -225,7 +301,7 @@ def main() -> int:
     print(f"phase build: {times['build']:.6f} s [{card}] -> "
           f"{os.path.relpath(so, REPO)}")
     for line in so.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("ptxas:", line.strip())
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -324,18 +400,19 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
     per_second = rng.uniform(-180.0, 180.0, n_rt // RATE + 1)
     block_degs = [float(per_second[(i * 1024) // RATE])
                   for i in range(n_rt // 1024)]
-    rt_rot = PhaseRotator(rate=RATE, channels=2, device=dev)
+    rt_rot = PhaseRotator(rate=RATE, channels=2)
     with phase("phase_rotator_stereo_60s", card, times):
         rt_out = push_blocks(rt_rot, rt_audio, 1024, block_degs)
     rt_levels = [rt_rot.levels(c) for c in range(2)]
     ckpt = os.path.join(tmp, "sweeps.npz")
     fleet8 = {f"f{i}": fleet[i] for i in range(8)}
-    analyzer = AngleAnalyzer(rate=RATE, device=dev)
+    analyzer = AngleAnalyzer(rate=RATE)
     with phase("analyzer_8x2x10s", card, times):
         an_first = analyzer.analyze_many(fleet8, checkpoint=ckpt)
     sync()
     launches = dict(_build.launches)
     print(f"launches: {json.dumps(launches)}")
+    check(rt_rot.device.type == "cuda", "PhaseRotator's default device")
     for name, count in launches.items():
         if name not in ("fused_rotate_fir", "peak"):  # no production caller
             check(count > 0,
@@ -421,16 +498,16 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
     # 10 s at a constant angle
     n10 = 10 * RATE
     x10 = np.ascontiguousarray(audio[:, :n10])
-    r1024 = PhaseRotator(rate=RATE, channels=2, meters=False, device=dev)
+    r1024 = PhaseRotator(rate=RATE, channels=2, meters=False)
     with phase("phase_rotator_10s_1024", card, times):
         y1024 = push_blocks(r1024, x10, 1024)
     resume = os.path.join(tmp, "stream.npz")
     save_at = 721  # 240093 samples: mid-frame
-    r333 = PhaseRotator(rate=RATE, channels=2, meters=False, device=dev)
+    r333 = PhaseRotator(rate=RATE, channels=2, meters=False)
     with phase("phase_rotator_10s_333", card, times):
         y333 = push_blocks(r333, x10, 333, save_at=save_at, path=resume)
     check(np.array_equal(y333, y1024), "333- vs 1024-sample host blocks")
-    r_res = PhaseRotator(rate=RATE, channels=2, meters=False, device=dev)
+    r_res = PhaseRotator(rate=RATE, channels=2, meters=False)
     r_res.load(resume)
     check(r_res._offset != 0, "the resume point is not mid-frame")
     y_res = push_blocks(r_res, x10[:, save_at * 333 :], 333)
@@ -479,12 +556,27 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
         check(torch.equal(k, p), f"sweep table not bit-equal ({shape_name})")
     sweep_ms = cuda_ms(lambda: rotate_peak_sweep_kernel(b0, b1, cs))
     sweep_plain_ms = cuda_ms(lambda: rotate_peak_sweep_plain(b0, b1, cs), 2)
+    # per pair and angle: two products, a sum and a running max
     kernels.append(dict(
         name="rotate_peak_sweep", route="cuda",
         source="phaserotate_tpu_torch/csrc/rotate_peak.cu",
         replaces="phaserotate_tpu/kernels/rotate_peak.py:110",
         launches=launches["rotate_peak_sweep"], max_abs_err=0.0,
-        ms=sweep_ms, plain_ms=sweep_plain_ms))
+        ms=sweep_ms, plain_ms=sweep_plain_ms,
+        **bound(nbytes(b0, b1, cs) + b0.shape[0] * 360 * 4,
+                4.0 * b0.numel() * 360),
+        library_ms=None))
+
+    def conv_yardstick(x, firlen):
+        """The same convolution as one torch.fft overlap-add at
+        fused_parsiz_for(firlen): cuFFT on the card."""
+        parsiz = fc.fused_parsiz_for(firlen)
+        n_f = -(-x.shape[-1] // parsiz) + 1
+        frames_l = torch.nn.functional.pad(
+            x, (0, n_f * parsiz - x.shape[-1])).reshape(-1, n_f, parsiz)
+        return fc.fused_ola_conv_plain(
+            frames_l, fc.hilbert_fir_spectrum(firlen, parsiz, x.device),
+            parsiz).reshape(*x.shape[:-1], -1)
 
     conv_err = 0.0
     for xin in (x4, fleet):
@@ -492,18 +584,30 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
             (sc.hilbert_small(xin, geom.parsiz)
              - sc.hilbert_small_plain(xin, geom.parsiz)).abs().max()))
     check(conv_err < 1e-5, f"hilbert_small vs plain: {conv_err}")
+    h_small = sc.hilbert_small(x4, geom.parsiz)
+    h_lib = conv_yardstick(x4, geom.parsiz)[..., : h_small.shape[-1]]
+    check(float((h_small - h_lib).abs().max()) < 1e-5,
+          "stream_conv conv and its cuFFT yardstick differ")
     kernels.append(dict(
         name="stream_conv_hilbert", route="cuda",
         source="phaserotate_tpu_torch/csrc/stream_conv.cu",
         replaces="phaserotate_tpu/kernels/stream_conv.py:261",
         launches=launches["hilbert_small"], max_abs_err=conv_err,
         ms=cuda_ms(lambda: sc.hilbert_small(x4, geom.parsiz)),
-        plain_ms=cuda_ms(lambda: sc.hilbert_small_plain(x4, geom.parsiz), 2)))
+        plain_ms=cuda_ms(lambda: sc.hilbert_small_plain(x4, geom.parsiz), 2),
+        **bound(nbytes(x4, h_small),
+                fir_conv_flops(x4.shape[0], n_4min, geom.parsiz, 0)),
+        library_ms=cuda_ms(lambda: conv_yardstick(x4, geom.parsiz), 2)))
+    del h_small, h_lib
 
     turns = degrees_to_turns(stem_degs)
-    mix_err = float((sc.rotate_small(stems, turns, 3072)
-                     - sc.rotate_small_plain(stems, turns, 3072)).abs().max())
+    mix_out = sc.rotate_small(stems, turns, 3072)
+    mix_err = float((mix_out - sc.rotate_small_plain(stems, turns, 3072)
+                     ).abs().max())
     check(mix_err < 2e-5, f"rotate_small vs plain: {mix_err}")
+    check(float((mix_out - fc.fused_rotate_fir_plain(stems, turns, 3072)
+                 ).abs().max()) < 2e-5,
+          "stream_conv mix and its cuFFT yardstick differ")
     kernels.append(dict(
         name="stream_conv_mix", route="cuda",
         source="phaserotate_tpu_torch/csrc/stream_conv.cu",
@@ -511,7 +615,13 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
         launches=launches["rotate_small"], max_abs_err=mix_err,
         ms=cuda_ms(lambda: sc.rotate_small(stems, turns, 3072)),
         plain_ms=cuda_ms(lambda: sc.rotate_small_plain(stems, turns, 3072),
-                         2)))
+                         2),
+        # cos*dry + sin*h per sample
+        **bound(nbytes(stems, turns, mix_out),
+                fir_conv_flops(stems.shape[0], stems.shape[-1], 3072, 3)),
+        library_ms=cuda_ms(lambda: fc.fused_rotate_fir_plain(stems, turns,
+                                                             3072), 2)))
+    del mix_out
 
     # the ramp: a target that changes every 50 plugin blocks
     n_blocks = -(-(n_4min + sgeom.latency) // sgeom.parsiz)
@@ -534,7 +644,20 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
         launches=launches["stream_mix"], max_abs_err=sm_err,
         ms=cuda_ms(lambda: sc.fused_stream_mix(fr256, params, sgeom.firlen)),
         plain_ms=cuda_ms(lambda: sc.fused_stream_mix_plain(
-            fr256, params, sgeom.firlen), 2)))
+            fr256, params, sgeom.firlen), 2),
+        # the ramp (angle + slope*i) * 2*pi, then cos*dry + sin*h
+        **bound(2 * nbytes(fr256) + nbytes(params),
+                fir_conv_flops(1, fr256.shape[1] * sc.P, sgeom.firlen, 6)),
+        library_ms=None))
+    # where a stream_conv call's time goes: its two passes and the
+    # wrapper's framing copies
+    for name, fn in (
+            ("stream_conv_hilbert", lambda: sc.hilbert_small(x4, geom.parsiz)),
+            ("stream_conv_mix", lambda: sc.rotate_small(stems, turns, 3072)),
+            ("stream_conv_stream_mix",
+             lambda: sc.fused_stream_mix(fr256, params, sgeom.firlen))):
+        print(f"{name} device ms by kernel: {json.dumps(device_split(fn))} "
+              f"[{card}]")
 
     # fused_conv conv mode at every supported partition size: the two
     # main-path shapes (64 stems at 4096 and 16384) and the 4-minute
@@ -544,7 +667,7 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
         return torch.nn.functional.pad(
             x, (0, n_f * parsiz - x.shape[-1])).reshape(-1, n_f, parsiz)
 
-    fc_err, fc_ms = 0.0, {}
+    fc_err, fc_ms, fc_bound = 0.0, {}, {}
     for parsiz, firlen, xin in ((2048, 2048, x4), (4096, 3072, stems),
                                 (8192, 8192, x4), (16384, 16128, stems)):
         frames_p = framed(xin, parsiz)
@@ -562,17 +685,23 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
                 cuda_ms(lambda: fc.fused_ola_conv(frames_p, spec, parsiz)),
                 cuda_ms(lambda: fc.fused_ola_conv_plain(frames_p, spec,
                                                         parsiz), 2))
+            fc_bound[parsiz] = bound(
+                2 * nbytes(frames_p) + nbytes(spec),
+                fused_conv_flops(frames_p.shape[0] * frames_p.shape[1],
+                                 parsiz, 0))
             print(f"fused_conv parsiz {parsiz} 64x60 s: kernel "
                   f"{fc_ms[parsiz][0]!r} ms, plain {fc_ms[parsiz][1]!r} ms "
                   f"[{card}]")
         del frames_p
+    # the plain twin is the library call here: torch.fft, cuFFT
     kernels.append(dict(
         name="fused_conv_hilbert", route="cuda",
         source="phaserotate_tpu_torch/csrc/fused_conv.cu",
         replaces="phaserotate_tpu/kernels/fused_conv.py:375",
         launches=launches["fused_hilbert"], max_abs_err=fc_err,
-        ms=fc_ms[4096][0], plain_ms=fc_ms[4096][1],
-        ms_by_parsiz={str(p): dict(ms=k, plain_ms=pl)
+        ms=fc_ms[4096][0], plain_ms=fc_ms[4096][1], **fc_bound[4096],
+        library_ms=fc_ms[4096][1],
+        ms_by_parsiz={str(p): dict(ms=k, plain_ms=pl, **fc_bound[p])
                       for p, (k, pl) in fc_ms.items()}))
 
     # the two kernels no main path calls: counted here
@@ -585,28 +714,41 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
     for name, v in (("4-minute stereo", flat4), ("stems", flat_stems)):
         check(torch.equal(peak_kernel(v), peak_plain(v)),
               f"peak not bit-equal ({name})")
+    check(torch.equal(peak_kernel(flat_stems),
+                      torch.linalg.vector_norm(flat_stems, float("inf"))),
+          "peak and torch.linalg.vector_norm differ")
     direct = dict(_build.launches)
     check(direct["fused_rotate_fir"] > 0 and direct["peak"] > 0,
           f"direct checks did not launch: {direct}")
+    mixf_plain_ms = cuda_ms(lambda: fc.fused_rotate_fir_plain(stems, turns,
+                                                              3072), 2)
     kernels.append(dict(
         name="fused_conv_mix", route="cuda",
         source="phaserotate_tpu_torch/csrc/fused_conv.cu",
         replaces="phaserotate_tpu/kernels/fused_conv.py:422",
         launches=direct["fused_rotate_fir"], max_abs_err=mixf_err,
         ms=cuda_ms(lambda: fc.fused_rotate_fir(stems, turns, 3072)),
-        plain_ms=cuda_ms(lambda: fc.fused_rotate_fir_plain(stems, turns,
-                                                           3072), 2)))
+        plain_ms=mixf_plain_ms,
+        # the same function as stream_conv_mix, so the same bound
+        **bound(2 * nbytes(stems) + nbytes(turns),
+                fir_conv_flops(stems.shape[0], stems.shape[-1], 3072, 3)),
+        library_ms=mixf_plain_ms))
     kernels.append(dict(
         name="peak", route="cuda",
         source="phaserotate_tpu_torch/csrc/rotate_peak.cu",
         replaces="phaserotate_tpu/kernels/rotate_peak.py:56",
         launches=direct["peak"], max_abs_err=0.0,
         ms=cuda_ms(lambda: peak_kernel(flat_stems)),
-        plain_ms=cuda_ms(lambda: peak_plain(flat_stems), 2)))
+        plain_ms=cuda_ms(lambda: peak_plain(flat_stems), 2),
+        **bound(nbytes(flat_stems) + 4, 1.0 * flat_stems.numel()),
+        library_ms=cuda_ms(lambda: torch.linalg.vector_norm(
+            flat_stems, float("inf")), 2)))
 
     for k in kernels:
         print(f"kernel {k['name']}: {k['ms']!r} ms, plain {k['plain_ms']!r} "
-              f"ms, max_abs_err {k['max_abs_err']!r} [{card}]")
+              f"ms, bound {k['bound_ms']!r} ms ({k['bound_by']}), library "
+              f"{k['library_ms']!r} ms, max_abs_err {k['max_abs_err']!r} "
+              f"[{card}]")
     secs_4min = n_4min / RATE
     print(f"cli analyze in-process: "
           f"{secs_4min / times['cli_analyze_inprocess']:.1f}x realtime "

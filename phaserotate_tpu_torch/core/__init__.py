@@ -10,6 +10,7 @@ from .angles import (
     sincos_lut,
     turns_to_radians,
 )
+from .device import resolve_device
 from .fir import (
     design_hilbert_fir,
     offline_fir_spectrum,
@@ -40,6 +41,7 @@ __all__ = [
     "offline_fir_spectrum",
     "offline_geometry",
     "partition_fir_spectra",
+    "resolve_device",
     "sin_cos_turns",
     "sincos_lut",
     "stream_geometry_for_rate",

@@ -1,11 +1,13 @@
 """Build, load and count the port's CUDA kernels.
 
 The sources under ``phaserotate_tpu_torch/csrc/`` are compiled at first use
-with ``nvcc`` into one shared library with a plain C interface and loaded
-with ``ctypes``.  The library's file name carries a hash of the sources and
-flags, so an edited kernel is rebuilt and a built one is reused by every
-later process of the same checkout.  A failed build raises with the
-compiler's output; nothing falls back.
+with ``nvcc``, one process per source and all at once (the build takes
+the time of the slowest source), and linked into one shared library with
+a plain C interface, loaded with ``ctypes``.  ``NVCC_FLAGS`` are the
+compile flags; the link adds ``-shared``.  The library's file name carries
+a hash of the sources and flags, so an edited kernel is rebuilt and a
+built one is reused by every later process of the same checkout.  A failed
+build raises with the compiler's output; nothing falls back.
 
 ``launches`` counts, per wrapper, the kernel launches made on CUDA tensors.
 """
@@ -25,9 +27,10 @@ __all__ = ["BUILD_DIR", "build", "check", "count_launch", "launches", "lib",
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("fused_conv.cu", "rotate_peak.cu", "stream_conv.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "phaserotate_tpu_torch"
-# no --use_fast_math: sincosf must stay full precision
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+# compile flags; no --use_fast_math: sincosf must stay full precision
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v")
 
 launches = {"rotate_peak_sweep": 0, "hilbert_small": 0, "rotate_small": 0,
             "stream_mix": 0, "fused_hilbert": 0, "fused_rotate_fir": 0,
@@ -83,6 +86,21 @@ def library_path() -> Path:
     return BUILD_DIR / f"libprt_torch_{h.hexdigest()[:16]}.so"
 
 
+def _nvcc_all(cmds) -> str:
+    """Run the nvcc commands ``cmds`` all at once; returns their joined
+    output, or raises with the first failed command's."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    done = [(cmd, proc.communicate()[0], proc.returncode)
+            for cmd, proc in procs]
+    for cmd, out, code in done:
+        if code != 0:
+            raise RuntimeError(f"nvcc failed with exit code {code}:\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(out for _, out, _ in done)
+
+
 def build() -> Path:
     """Compile the kernels unless this source hash is built already;
     returns the library's path.  ``<lib>.log`` keeps ptxas' report."""
@@ -90,15 +108,49 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(_CSRC / s) for s in _SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    tag = f"{so.name}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(name).stem}.o" for name in _SOURCES]
+    tmp = so.with_name(f"{tag}.tmp")
+    try:  # one nvcc per source, all at once, then the link
+        log = _nvcc_all([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                         str(_CSRC / name)]
+                        for name, obj in zip(_SOURCES, objs))
+        _nvcc_all([[_nvcc(), *_ARCH, "-shared", "-o", str(tmp),
+                    *map(str, objs)]])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text(log)
+    os.replace(tmp, so)  # atomic: a concurrent process never loads half a file
+    return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.name}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(name).stem}.o" for name in _SOURCES]
+    jobs = []
+    for name, obj in zip(_SOURCES, objs):  # one nvcc per source, at once
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(_CSRC / name)]
+        jobs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], None
+    for cmd, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(out)
+        if proc.returncode != 0 and failed is None:
+            failed = _nvcc_failed(cmd, proc.returncode, out)
+    tmp = so.with_name(f"{tag}.tmp")
+    try:
+        if failed is not None:
+            raise failed
+        cmd = [_nvcc(), *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise _nvcc_failed(cmd, proc.returncode,
+                               proc.stdout + proc.stderr)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text("".join(log))
     os.replace(tmp, so)  # atomic: a concurrent process never loads half a file
     return so
 

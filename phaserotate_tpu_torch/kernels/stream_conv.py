@@ -29,6 +29,7 @@ from ..core.angles import _TWO_PI
 from ..core.fir import _partition_fir_spectra_np, partition_fir_spectra
 from ..ops.convolve import partitioned_convolve
 from . import _build
+from .fused_conv import _bitrev
 
 __all__ = [
     "P",
@@ -44,7 +45,7 @@ __all__ = [
 
 P = 256          # internal frame (samples consumed/produced per step)
 FFTK = 2 * P     # zero-padded transform length
-_BINS = P + 2    # bins 0..P plus one zero bin, the kernel's spectrum row
+_BINS = P + 2    # the kernel's spectrum row: P positions, Nyquist, a pad
 
 
 def small_conv_supported(fir_taps: int) -> bool:
@@ -62,19 +63,29 @@ def stream_mix_supported(firlen: int) -> bool:
 
 @functools.lru_cache(maxsize=8)
 def _twiddles(device: torch.device) -> torch.Tensor:
-    """(FFTK, 2) float32 [cos, sin](2*pi*j/FFTK): the values of the JAX
-    kernel's DFT matrices (stream_conv.py _dft_consts), indexed by
-    (n*k) mod FFTK."""
+    """(FFTK, 2) float32 [cos, sin](2*pi*j/FFTK), computed in float64: the
+    twiddles of the kernel's FFTs (W_FFTK^j is the conjugate of entry j)
+    and the values of the JAX kernel's DFT matrices (stream_conv.py
+    _dft_consts)."""
     ang = 2.0 * np.pi * np.arange(FFTK, dtype=np.float64) / FFTK
     tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
     return torch.tensor(tw, device=device)
 
 
+def _row_order() -> np.ndarray:
+    """The bin held by each entry of the kernel's spectrum rows: entry
+    p < P holds bin bitrev(p) (the bit-reversed order in which the forward
+    FFT leaves its output), entry P the Nyquist bin P; entry P+1 is an
+    unused zero pad."""
+    return np.append(_bitrev(np.arange(P), P.bit_length() - 1), P)
+
+
 @functools.lru_cache(maxsize=16)
 def _fir_parts(fir_taps: int, device: torch.device) -> torch.Tensor:
-    """(n_segm, _BINS, 2) float32 partition spectra of the FIR at P: the
-    reference's per-segment r2c transforms (src/phaserotate.c:396-401)."""
-    spec = _partition_fir_spectra_np(fir_taps, P)  # (ns, P+1) complex
+    """(n_segm, _BINS, 2) float32 partition spectra of the FIR at P (the
+    reference's per-segment r2c transforms, src/phaserotate.c:396-401),
+    each row in the kernel's position order (:func:`_row_order`)."""
+    spec = _partition_fir_spectra_np(fir_taps, P)[:, _row_order()]
     out = np.zeros((spec.shape[0], _BINS, 2), np.float32)
     out[:, : P + 1, 0] = spec.real
     out[:, : P + 1, 1] = spec.imag

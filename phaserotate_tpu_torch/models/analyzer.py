@@ -3,8 +3,10 @@
 Counterpart of ``phaserotate_tpu/models/analyzer.py``: the batched sweep,
 the CLI-parity selection and sweep checkpointing behind one object.  Point
 it at a set of files, get per-file minimum-peak angles, resume after an
-interruption.  The sweep runs on ``device`` (the two CUDA kernels there);
-peak tables and results are numpy on the host.
+interruption.  The sweep runs on ``device`` (``"cpu"`` for the CPU);
+without it where the audio tensor lies, or for other input on the CUDA
+device: the two CUDA kernels on the card.  Peak tables and results are numpy on the
+host.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from ..core.angles import SUBSAMPLE
+from ..core.device import as_f32
 from ..core.sizes import offline_geometry
 from ..search.minimize import SearchResult, select_min_peak_angles
 from ..search.sweep import apply_angles, sweep_peaks_aux
@@ -43,8 +46,7 @@ class AngleAnalyzer:
         self.device = device
 
     def _audio(self, audio) -> torch.Tensor:
-        return torch.atleast_2d(torch.as_tensor(
-            audio, dtype=torch.float32, device=self.device))
+        return torch.atleast_2d(as_f32(audio, self.device))
 
     def sweep(self, audio) -> tuple:
         """Raw peak tables (table, rot0), numpy, for (channels, n) audio."""

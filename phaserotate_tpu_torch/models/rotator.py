@@ -158,7 +158,9 @@ class OfflineRotator:
 
     With ``method="fir"`` the FIR is ``geom.firlen`` taps: on CUDA the
     stream_conv kernel for the plugin FIRs, the fused_conv kernel for the
-    other FIRs up to 16384 taps (ops/rotate.py).
+    other FIRs up to 16384 taps (ops/rotate.py).  The input goes to
+    ``device`` (``"cpu"`` for the CPU); without it a tensor stays on its
+    own device and other input goes to the CUDA device.
     """
 
     def __init__(self, rate: float = 48000.0, method: str = "spectral",

@@ -27,6 +27,7 @@ import torch
 
 from ..core import angles as _angles
 from ..core import sizes as _sizes
+from ..core.device import as_f32
 from ..core.fir import partition_fir_spectra
 from ..kernels.fused_conv import (
     fused_hilbert,
@@ -41,10 +42,6 @@ from .convolve import partitioned_convolve
 __all__ = ["rotate", "rotate_spectral", "rotate_fir", "hilbert_fir"]
 
 
-def _as_f32(audio, device) -> torch.Tensor:
-    return torch.as_tensor(audio, dtype=torch.float32, device=device)
-
-
 def _theta(degrees, device) -> torch.Tensor:
     """Degrees -> rotation angle theta (radians), via the reference's
     clamped negated-turns representation (src/phaserotate.c:564-571)."""
@@ -55,7 +52,7 @@ def _theta(degrees, device) -> torch.Tensor:
 def rotate_spectral(audio, degrees, device=None) -> torch.Tensor:
     """Exact spectral phase rotation of ``audio`` (..., n) by ``degrees``
     (scalar or broadcastable to the leading dims)."""
-    x = _as_f32(audio, device)
+    x = as_f32(audio, device)
     n = x.shape[-1]
     theta = _theta(degrees, x.device)[..., None]
     X = torch.fft.rfft(x, dim=-1)  # (..., n//2+1)
@@ -78,7 +75,7 @@ def hilbert_fir(audio, firlen: int, device=None) -> torch.Tensor:
     elsewhere, and above that, the single-partition OLA on ``torch.fft``
     (as the JAX package leaves those to plain XLA).
     """
-    x = _as_f32(audio, device)
+    x = as_f32(audio, device)
     lat = firlen // 2
     if x.device.type == "cuda" and supported_parsiz(fused_parsiz_for(firlen)):
         full = fused_hilbert(x, firlen)
@@ -106,7 +103,7 @@ def rotate_fir(audio, degrees, rate: float = 48000.0,
     ``rate`` after its ``parsiz + firlen/2`` latency is trimmed
     (src/phaserotate.c:297).
     """
-    x = _as_f32(audio, device)
+    x = as_f32(audio, device)
     if firlen is None:
         firlen = _sizes.stream_geometry_for_rate(rate).firlen
     turns = _angles.degrees_to_turns(degrees, device=x.device)
@@ -125,7 +122,9 @@ def rotate(audio, degrees, method: str = "spectral", rate: float = 48000.0,
       method: ``"spectral"`` (exact, default) or ``"fir"`` (plugin parity).
       rate: sample rate, used only to pick the FIR geometry for ``"fir"``.
       firlen: explicit FIR length override for ``"fir"``.
-      device: where a non-tensor ``audio`` goes; a tensor stays on its own.
+      device: where ``audio`` goes (``"cpu"`` for the CPU); without it a
+        tensor stays on its own device and other input goes to the CUDA
+        device.
 
     Returns the rotated signal, float32, same shape, time-aligned.
     """

@@ -5,6 +5,7 @@ from typing import Optional
 import torch
 
 from ..core.angles import SUBSAMPLE
+from ..core.device import as_f32
 from ..core.sizes import OfflineGeometry, offline_geometry
 from .minimize import (
     SearchResult,
@@ -46,12 +47,13 @@ def find_min_peak_angle(
       stride: coarse step in half-degree units (CLI ``-s``).
       link_channels: minimize the downmixed peak (CLI ``-l``).
       blksiz: explicit block size (CLI ``-f``), 0 = derive from rate.
-      device: where a non-tensor ``audio`` goes; a tensor stays on its own.
+      device: where ``audio`` goes (``"cpu"`` for the CPU); without it a
+        tensor stays on its own device and other input goes to the CUDA
+        device.
 
     Returns a :class:`SearchResult` with per-channel angles in degrees.
     """
-    x = torch.atleast_2d(
-        torch.as_tensor(audio, dtype=torch.float32, device=device))
+    x = torch.atleast_2d(as_f32(audio, device))
     if geom is None:
         geom = offline_geometry(rate, blksiz)
     table, rot0 = sweep_peaks_aux(x, geom)

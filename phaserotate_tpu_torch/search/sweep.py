@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..core.angles import MAXSAMPLE, all_angle_cos_sin, sincos_lut
+from ..core.device import as_f32
 from ..core.fir import offline_fir_spectrum
 from ..core.sizes import OfflineGeometry
 from ..kernels.rotate_peak import rotate_peak_sweep_kernel
@@ -116,13 +117,14 @@ def sweep_peaks(audio, geom: OfflineGeometry, chunk: int = 4096,
       audio: (..., n) float32 — channels/files in leading dims.
       geom: offline geometry (CLI block size).
       chunk: samples per sweep-kernel block.
-      device: where a non-tensor ``audio`` goes.
+      device: where a non-tensor ``audio`` goes (default: the CUDA
+        device; ``"cpu"`` for the CPU).
 
     Returns (..., MAXSAMPLE) float32: ``peaks[..., a]`` is the digital peak
     after rotating by ``a`` half-degrees — the table the CLI accumulates
     per block and per angle (cli/phase-rotate.cc:409-428).
     """
-    x = torch.as_tensor(audio, dtype=torch.float32, device=device)
+    x = as_f32(audio, device)
     return _sweep_impl(x, geom, chunk)[0]
 
 
@@ -130,7 +132,7 @@ def sweep_peaks_aux(audio, geom: OfflineGeometry, chunk: int = 4096,
                     device=None):
     """Like :func:`sweep_peaks` but also returns the (...,) "rotated at 0"
     aux peak needed for bit-exact fine-pass parity (see minimize.py)."""
-    x = torch.as_tensor(audio, dtype=torch.float32, device=device)
+    x = as_f32(audio, device)
     return _sweep_impl(x, geom, chunk)
 
 
@@ -147,7 +149,7 @@ def apply_angles(audio, angle_units, geom: OfflineGeometry,
     ``y[m] = cos*x[m] + sin*h[m + firlen]`` (the write path skips blksiz/2
     frames, cli/phase-rotate.cc:963-991).
     """
-    x = torch.as_tensor(audio, dtype=torch.float32, device=device)
+    x = as_f32(audio, device)
     n = x.shape[-1]
     firlen = geom.firlen
     h = hilbert_offline(x, geom)

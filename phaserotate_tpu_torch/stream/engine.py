@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..core.angles import _TWO_PI, degrees_to_turns
+from ..core.device import as_f32
 from ..core.fir import partition_fir_spectra
 from ..core.sizes import StreamGeometry, stream_geometry_for_rate
 from ..kernels.stream_conv import P, fused_stream_mix, stream_mix_supported
@@ -393,11 +394,12 @@ def rotate_streamed(audio, degrees, rate: float = 48000.0,
     On CUDA, for the plugin FIRs (``stream_mix_supported``), it runs the
     stream_conv kernel with the per-sample angle ramp; elsewhere the
     vectorized bulk engine in ``chunk_frames`` slices with the exact state
-    carry between them.
+    carry between them.  A non-tensor ``audio`` goes to ``device`` (default:
+    the CUDA device; ``"cpu"`` for the CPU).
     """
     if geom is None:
         geom = stream_geometry_for_rate(rate)
-    x = torch.as_tensor(audio, dtype=torch.float32, device=device)
+    x = as_f32(audio, device)
     n = x.shape[-1]
     parsiz = geom.parsiz
     # pad with latency worth of silence so the tail flushes

@@ -23,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..core.sizes import StreamGeometry, stream_geometry_for_rate
 from .engine import init_state, stream_process_batched, stream_step_batched
 
@@ -159,7 +160,8 @@ class StreamingRotator:
         out = rot.process(block, degrees=[35.0, 35.0])  # any block length
 
     ``process`` takes and returns host (numpy) blocks; the engine state
-    stays on ``device``.  No allocation grows with history.
+    stays on ``device`` (default: the CUDA device; ``"cpu"`` for the CPU).
+    No allocation grows with history.
     """
 
     def __init__(
@@ -173,8 +175,7 @@ class StreamingRotator:
         self.geom = geom or stream_geometry_for_rate(rate)
         self.channels = channels
         self.pipeline_depth = int(pipeline_depth)
-        self.device = torch.device(device) if device is not None \
-            else torch.device("cpu")
+        self.device = resolve_device(device)
         self.reset()
 
     @property

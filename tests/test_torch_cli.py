@@ -1,6 +1,7 @@
 """The port's CLI against phaserotate_tpu.cli on WAV files, and the port's
 independence from JAX at run time."""
 
+import functools
 import os
 import re
 import subprocess
@@ -20,6 +21,10 @@ from test_search import make_signal
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+# the port runs on the CUDA device unless asked for the CPU
+p_main = functools.partial(p_cli.main, device="cpu")
 
 
 def _run(main, argv, capsys):
@@ -68,7 +73,7 @@ def stereo_wav(tmp_path, rng):
 def test_analysis_output_equals_jax_cli(stereo_wav, capsys, flags):
     argv = flags + [stereo_wav]
     j_rc, j_out, j_err = _run(j_cli.main, argv, capsys)
-    p_rc, p_out, p_err = _run(p_cli.main, argv, capsys)
+    p_rc, p_out, p_err = _run(p_main, argv, capsys)
     assert p_rc == j_rc == 0
     _assert_same_text(p_out, j_out)
     _assert_same_text(p_err, j_err)
@@ -77,13 +82,13 @@ def test_analysis_output_equals_jax_cli(stereo_wav, capsys, flags):
 
 
 def test_analyze_then_apply_round_trip(stereo_wav, tmp_path, capsys):
-    _, out, _ = _run(p_cli.main, [stereo_wav], capsys)
+    _, out, _ = _run(p_main, [stereo_wav], capsys)
     angles = _angles(out)
     assert len(angles) == 2 and any(angles)
     spec = ",".join(f"{a:g}" for a in angles)
     j_dst, p_dst = str(tmp_path / "j.wav"), str(tmp_path / "p.wav")
     assert j_cli.main(["-a", spec, stereo_wav, j_dst]) == 0
-    assert p_cli.main(["-a", spec, stereo_wav, p_dst]) == 0
+    assert p_main(["-a", spec, stereo_wav, p_dst]) == 0
     want, j_rate, _ = j_read_wav(j_dst)
     got, p_rate, _ = read_wav(p_dst)
     assert p_rate == j_rate == 48000
@@ -99,7 +104,7 @@ def test_validation_errors_equal_jax_cli(stereo_wav, tmp_path, capsys):
                  ["-a", "10", stereo_wav], ["-a", "200", stereo_wav, "o.wav"],
                  [str(tmp_path / "missing.wav")]):
         codes = []
-        for main in (j_cli.main, p_cli.main):
+        for main in (j_cli.main, p_main):
             try:
                 codes.append(main(argv))
             except SystemExit as e:
@@ -116,17 +121,17 @@ def test_port_runs_without_jax():
         "import phaserotate_tpu_torch as pr\n"
         "x = np.sin(np.arange(6000) * 0.05).astype(np.float32)\n"
         "x = np.stack([x, np.roll(x, 17) * 0.5])\n"
-        "res = pr.find_min_peak_angle(x, rate=48000)\n"
-        "y = pr.rotate(x, 35.0, method='fir')\n"
+        "res = pr.find_min_peak_angle(x, rate=48000, device='cpu')\n"
+        "y = pr.rotate(x, 35.0, method='fir', device='cpu')\n"
         "assert y.shape == x.shape and len(res.angles_units) == 2\n"
         "from phaserotate_tpu_torch import meter, models, stream\n"
         "from phaserotate_tpu_torch.kernels import fused_conv\n"
-        "rot = pr.PhaseRotator(rate=48000, channels=2)\n"
+        "rot = pr.PhaseRotator(rate=48000, channels=2, device='cpu')\n"
         "assert rot.process(x, 35.0).shape == x.shape\n"
-        "h = fused_conv.fused_hilbert(pr.rotate(x, 0.0), 3072)\n"
+        "h = fused_conv.fused_hilbert(pr.rotate(x, 0.0, device='cpu'), 3072)\n"
         "assert h.shape[-1] >= x.shape[-1]\n"
-        "s = stream.rotate_streamed(x[0], 35.0)\n"
-        "an = pr.AngleAnalyzer(rate=48000)\n"
+        "s = stream.rotate_streamed(x[0], 35.0, device='cpu')\n"
+        "an = pr.AngleAnalyzer(rate=48000, device='cpu')\n"
         "assert an.analyze(x).angles_units == res.angles_units\n"
         "assert float(rot.levels(1).out_peak) > 0\n"
         "bad = [m for m in sys.modules\n"

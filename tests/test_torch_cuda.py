@@ -8,22 +8,29 @@ without it:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import os
+import tempfile
+
 import numpy as np
 import pytest
 import torch
 
+import phaserotate_tpu_torch as pr
+from phaserotate_tpu_torch import cli
 from phaserotate_tpu_torch.core.angles import all_angle_cos_sin
 from phaserotate_tpu_torch.core.angles import degrees_to_turns
 from phaserotate_tpu_torch.core.sizes import stream_geometry_for_rate
 from phaserotate_tpu_torch.kernels import _build
 from phaserotate_tpu_torch.kernels import fused_conv as fc
 from phaserotate_tpu_torch.kernels import stream_conv as sc
+from phaserotate_tpu_torch.io import write_wav
 from phaserotate_tpu_torch.kernels.rotate_peak import (
     peak_kernel,
     rotate_peak_sweep_kernel,
     rotate_peak_sweep_plain,
 )
 from phaserotate_tpu_torch.ops.rotate import hilbert_fir, rotate_fir
+from phaserotate_tpu_torch.stream import rotate_streamed
 from phaserotate_tpu_torch.stream.engine import (
     _internal_angle_params,
     angle_sequence,
@@ -206,3 +213,32 @@ def test_phase_rotator_on_card(dev):
     d = 3 * 256
     y3 = run(piped, 333)
     np.testing.assert_array_equal(y3[:, d:], y[:, :-d])
+
+
+def test_entry_points_default_to_the_card(dev):
+    """Numpy input and no device argument: the work runs on the card, and
+    the kernels' launch counters rise."""
+    rng = np.random.default_rng(9)
+    x = (0.4 * rng.standard_normal((2, 30000))).astype(np.float32)
+    _build.reset_launches()
+    assert pr.rotate(x, 35.0, method="fir").device.type == "cuda"
+    assert rotate_streamed(x[0], 35.0).device.type == "cuda"
+    assert pr.OfflineRotator(method="fir")(x, 20.0).device.type == "cuda"
+    res = pr.find_min_peak_angle(x, rate=48000)
+    assert pr.AngleAnalyzer().analyze(x).angles_units == res.angles_units
+    assert pr.PhaseRotator(rate=48000, channels=2).device.type == "cuda"
+    counts = dict(_build.launches)
+    assert counts["rotate_small"] == 2 and counts["stream_mix"] == 1
+    assert counts["hilbert_small"] == 2 and counts["rotate_peak_sweep"] == 2
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.wav")
+        write_wav(src, x, 48000, bits=16, float_format=False)
+        assert cli.main([src]) == 0
+    assert _build.launches["hilbert_small"] == 3
+    # an explicit device moves a CPU tensor to the card
+    xc = torch.from_numpy(x)
+    assert pr.rotate(xc, 35.0, method="fir",
+                     device="cuda").device.type == "cuda"
+    assert pr.find_min_peak_angle(xc, device="cuda").angles_units \
+        == res.angles_units
+    assert _build.launches["rotate_small"] == 3

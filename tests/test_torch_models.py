@@ -43,7 +43,7 @@ def _sig(n, chans=1):
 def test_phase_rotator_output_and_meters_match_jax(rng):
     x = (0.5 * rng.standard_normal((2, 40 * 333))).astype(np.float32)
     jr = JRotator(rate=48000, channels=2)
-    pr = PhaseRotator(rate=48000, channels=2)
+    pr = PhaseRotator(rate=48000, channels=2, device="cpu")
     plan = [[0.0, 0.0]] * 8 + [[35.0, -90.0]] * 10 + [[170.0, -90.0]] * 22
     sizes = [333, 1024, 64, 700, 4096]
     pos = 0
@@ -64,7 +64,7 @@ def test_phase_rotator_output_and_meters_match_jax(rng):
 
 
 def test_phase_rotator_mono_and_reset_peaks(rng):
-    rot = PhaseRotator(rate=48000, channels=1)
+    rot = PhaseRotator(rate=48000, channels=1, device="cpu")
     x = (0.8 * rng.standard_normal(8192)).astype(np.float32)
     y = rot.process(x, 35.0)
     assert y.shape == x.shape
@@ -73,23 +73,24 @@ def test_phase_rotator_mono_and_reset_peaks(rng):
     rot.reset_peaks()
     rot.process(np.zeros(256, np.float32), 35.0)
     assert rot.levels(0).in_peak.item() < 0.3
-    quiet = PhaseRotator(rate=48000, channels=1, meters=False)
+    quiet = PhaseRotator(rate=48000, channels=1, meters=False, device="cpu")
     np.testing.assert_array_equal(
-        quiet.process(x, 35.0), PhaseRotator(rate=48000).process(x, 35.0))
+        quiet.process(x, 35.0),
+        PhaseRotator(rate=48000, device="cpu").process(x, 35.0))
 
 
 def test_phase_rotator_checkpoint_resume(tmp_path, rng):
     """Save mid-frame, resume in a fresh rotator: bit-identical."""
     x = rng.standard_normal((2, 16 * 256)).astype(np.float32)
     split = 8 * 256 + 100
-    ref = PhaseRotator(rate=48000, channels=2)
+    ref = PhaseRotator(rate=48000, channels=2, device="cpu")
     y_ref = np.concatenate([ref.process(x[:, :split], 90.0),
                             ref.process(x[:, split:], 90.0)], axis=1)
-    r1 = PhaseRotator(rate=48000, channels=2)
+    r1 = PhaseRotator(rate=48000, channels=2, device="cpu")
     y1 = r1.process(x[:, :split], 90.0)
     path = str(tmp_path / "s.npz")
     r1.save(path)
-    r2 = PhaseRotator(rate=48000, channels=2)
+    r2 = PhaseRotator(rate=48000, channels=2, device="cpu")
     r2.load(path)
     y2 = r2.process(x[:, split:], 90.0)
     np.testing.assert_array_equal(np.concatenate([y1, y2], axis=1), y_ref)
@@ -104,7 +105,7 @@ def test_phase_rotator_resumes_jax_checkpoint(tmp_path, rng):
     jr.process(x[:split], -45.0)
     path = str(tmp_path / "j.npz")
     jr.save(path)
-    pr = PhaseRotator(rate=48000, channels=1)
+    pr = PhaseRotator(rate=48000, channels=1, device="cpu")
     pr.load(path)
     np.testing.assert_allclose(pr.process(x[split:], -45.0),
                                jr.process(x[split:], -45.0), atol=1e-5)
@@ -112,11 +113,11 @@ def test_phase_rotator_resumes_jax_checkpoint(tmp_path, rng):
 
 def test_phase_rotator_checkpoint_validation(tmp_path):
     path = str(tmp_path / "s.npz")
-    PhaseRotator(rate=48000, channels=1).save(path)
+    PhaseRotator(rate=48000, channels=1, device="cpu").save(path)
     with pytest.raises(ValueError, match="channels"):
-        PhaseRotator(rate=48000, channels=2).load(path)
+        PhaseRotator(rate=48000, channels=2, device="cpu").load(path)
     with pytest.raises(ValueError, match="geometry"):
-        PhaseRotator(rate=96000, channels=1).load(path)
+        PhaseRotator(rate=96000, channels=1, device="cpu").load(path)
 
 
 @pytest.mark.parametrize("method,firlen", [
@@ -126,7 +127,8 @@ def test_offline_rotator_matches_jax(rng, method, firlen):
     geom = None if firlen is None else StreamGeometry(48000.0, 512, firlen)
     jgeom = None if firlen is None else JGeom(48000.0, 512, firlen)
     want = JOffline(rate=48000, method=method, geom=jgeom)(x, 35.0)
-    got = OfflineRotator(rate=48000, method=method, geom=geom)(x, 35.0)
+    got = OfflineRotator(rate=48000, method=method, geom=geom,
+                         device="cpu")(x, 35.0)
     assert isinstance(got, torch.Tensor) and got.shape == x.shape
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
     with pytest.raises(ValueError):
@@ -136,7 +138,7 @@ def test_offline_rotator_matches_jax(rng, method, firlen):
 def test_analyzer_matches_jax(rng):
     x = make_signal(rng, 2, 6000)
     jan = JAnalyzer(rate=48000, blksiz=1024)
-    pan = AngleAnalyzer(rate=48000, blksiz=1024)
+    pan = AngleAnalyzer(rate=48000, blksiz=1024, device="cpu")
     jres, pres = jan.analyze(x), pan.analyze(x)
     assert pres.angles_units == jres.angles_units
     np.testing.assert_allclose(pan.apply(x, pres).numpy(),
@@ -147,7 +149,7 @@ def test_analyzer_checkpoint_resume(tmp_path, rng):
     files = {f"f{i}": make_signal(rng, 1 + i % 2, 3000 + 64 * i)
              for i in range(3)}
     ck = str(tmp_path / "sweeps.npz")
-    pan = AngleAnalyzer(rate=48000, blksiz=1024)
+    pan = AngleAnalyzer(rate=48000, blksiz=1024, device="cpu")
     first = pan.analyze_many(files, checkpoint=ck)
     want = JAnalyzer(rate=48000, blksiz=1024).analyze_many(files)
     for k, x in files.items():
@@ -166,8 +168,8 @@ def test_analyzer_checkpoint_resume(tmp_path, rng):
     for k in files:
         assert jres[k].angles_units == first[k].angles_units
     with pytest.raises(ValueError, match="blksiz"):
-        AngleAnalyzer(rate=48000, blksiz=2048).analyze_many(files,
-                                                            checkpoint=ck)
+        AngleAnalyzer(rate=48000, blksiz=2048,
+                      device="cpu").analyze_many(files, checkpoint=ck)
 
 
 def test_stream_state_from_jax_round_trip(rng):

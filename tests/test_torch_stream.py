@@ -209,17 +209,18 @@ def test_streaming_rotator_matches_jax_any_block(rng, block):
     x = (0.5 * rng.standard_normal((2, 8192 if block > 1 else 2600))
          ).astype(np.float32)
     want = _push(JRotator(rate=48000, channels=2), x, block, [77.0, -20.0])
-    got = _push(StreamingRotator(rate=48000, channels=2), x, block,
-                [77.0, -20.0])
+    got = _push(StreamingRotator(rate=48000, channels=2, device="cpu"), x,
+                block, [77.0, -20.0])
     np.testing.assert_allclose(got, want, atol=1e-5)
     # block-size independence within the port: one host block
-    whole = StreamingRotator(geom=geom, channels=2).process(x, [77.0, -20.0])
+    whole = StreamingRotator(geom=geom, channels=2, device="cpu").process(
+        x, [77.0, -20.0])
     np.testing.assert_array_equal(got, whole)
 
 
 def test_streaming_rotator_mono_and_latency(rng):
     x = rng.standard_normal(6000).astype(np.float32)
-    rot = StreamingRotator(rate=48000)
+    rot = StreamingRotator(rate=48000, device="cpu")
     y = rot.process(x, 0.0)
     lat = rot.latency
     assert y.shape == x.shape and lat == 256 + 1536
@@ -246,8 +247,8 @@ def test_pipelined_rotator_is_exact_delay(rng, depth):
             pos += n
         return np.concatenate(outs)
 
-    base = StreamingRotator(geom=geom)
-    piped = StreamingRotator(geom=geom, pipeline_depth=depth)
+    base = StreamingRotator(geom=geom, device="cpu")
+    piped = StreamingRotator(geom=geom, pipeline_depth=depth, device="cpu")
     d = depth * geom.parsiz
     assert piped.latency == base.latency + d
     y0, y1 = run(base), run(piped)
