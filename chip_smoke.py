@@ -27,17 +27,27 @@ then, on the first CUDA device:
    the main paths' shapes (sweep table and peak bit-equal, conv < 1e-5,
    mixes < 2e-5, fused_conv at every supported partition size), counting
    the two kernels no main path calls (``fused_rotate_fir``, ``peak``);
+   the sweep also with a 120-angle slice of the table (the kernel's
+   one-angle loop, ``rotate_peak_sweep_general``) and on NaN and inf
+   samples (equal with NaN equal to NaN);
 5. prints the wall time of each phase and, per kernel, its time beside its
    plain version's, its bound (``bound_ms``: the larger of its bytes over
    the H100's 3.35 TB/s and its FP32 operations over 67 TFLOP/s,
    ``bound_by`` saying which; a convolution's operations are those its
    function needs, the same for every kernel that computes it, not those
-   of the kernel's own algorithm) and, where one PyTorch call computes the
+   of the kernel's own algorithm; the sweep's, those its function needs on
+   the table passed, whose mirror angles share their products) and, where
+   one PyTorch call computes the
    same function, that call's time (``library_ms``: cuFFT through
    ``torch.fft`` for the convolutions, ``torch.linalg.vector_norm`` for
    the peak; timed here only, the port never calls them), with the card's
    name and power limit (fused_conv's entry also carries both times at its
    two main-path partition sizes, 4096 and 16384, under ``ms_by_parsiz``).
+
+After the build it prints ptxas' registers and spills per kernel and a
+``sass:`` line, the FMUL/FADD/FMNMX/LDS counts of the sweep kernel's
+machine code (``cuobjdump -sass``), and after the sweep's timing the SM
+clock beside its maximum.
 
 The CLI and the models run without a device argument, so the port's own
 default (the CUDA device) places the work.
@@ -169,6 +179,71 @@ def fir_conv_flops(rows: int, n: int, firlen: int, mix_ops: int) -> float:
     parsiz = fused_parsiz_for(firlen)
     n_frames = rows * -(-(n + firlen // 2) // parsiz)
     return fused_conv_flops(n_frames, parsiz, mix_ops)
+
+
+def sweep_flops_per_sample(cs) -> int:
+    """The operations per sample the sweep's function needs on the table
+    ``cs``: two angles whose cos bits differ only in the sign and whose sin
+    bits are equal share both products bit for bit (|p + q| and |q - p|),
+    6 operations for the pair; every other angle takes 4 (two products, a
+    sum and a running max).  The canonical 360-angle table: 179 x 6 + 8."""
+    c, s = cs.cpu().contiguous().numpy().view(np.uint32).tolist()
+    waiting: dict = {}
+    pairs = 0
+    for key in zip(c, s):
+        mirror = (key[0] ^ 0x80000000, key[1])
+        if waiting.get(mirror):
+            waiting[mirror] -= 1
+            pairs += 1
+        else:
+            waiting[key] = waiting.get(key, 0) + 1
+    return 6 * pairs + 4 * (len(c) - 2 * pairs)
+
+
+def sweep_sass(so) -> str:
+    """The ``sass:`` line, a report and not a check: FMUL/FADD/FMNMX/LDS
+    counts (by opcode with its modifiers) in the sweep kernel's SASS, from
+    ``cuobjdump -sass`` of the built library; how many FMNMX take an
+    |operand|; and the same counts inside each loop that loads from shared
+    memory (a backward branch and the code it spans), hottest first."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return f"sass: cuobjdump not found ({tool})"
+    proc = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, timeout=120)
+    if proc.returncode:
+        return f"sass: cuobjdump exited {proc.returncode}"
+    funcs = re.split(r"\n\s*Function : ", proc.stdout)
+    body = next((f for f in funcs[1:]
+                 if "sweep_kernel" in f.split("\n", 1)[0]), None)
+    if body is None:
+        return "sass: no sweep_kernel in the library"
+    code = [(int(addr, 16), op, args) for addr, op, args in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)([^;]*);",
+        body)]
+
+    def mix(ops):
+        counts: dict = {}
+        for _, op, _ in ops:
+            if op.split(".")[0] in ("FMUL", "FADD", "FMNMX", "LDS"):
+                counts[op] = counts.get(op, 0) + 1
+        return dict(sorted(counts.items()))
+
+    loops = []
+    for addr, op, args in code:
+        target = re.match(r"\s*(?:`\()?0x([0-9a-f]+)", args)
+        if op.startswith("BRA") and target and int(target.group(1), 16) < addr:
+            span = [c for c in code if int(target.group(1), 16) <= c[0] <= addr]
+            if any(c[1].startswith("LDS") for c in span):
+                loops.append(dict(instructions=len(span), **mix(span)))
+    loops.sort(key=lambda lp: -lp.get("FMNMX", 0))
+    abs_max = sum(1 for _, op, args in code
+                  if op.startswith("FMNMX") and "|" in args)
+    return (f"sass: sweep_kernel {len(code)} instructions, "
+            f"{json.dumps(mix(code))}, FMNMX with an |operand| {abs_max}; "
+            f"loops {json.dumps(loops)}")
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -303,6 +378,7 @@ def main() -> int:
     for line in so.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("ptxas:", line.strip())
+    print(sweep_sass(so))
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         return drive(tmp, dev, card, times)
@@ -549,14 +625,56 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
     b0, b1, _, _ = aligned_pair(x4, geom)
     cs = all_angle_cos_sin(dev)
     fb0, fb1, _, _ = aligned_pair(fleet, geom)
-    for shape_name, (u0, u1) in (("4min stereo", (b0, b1)),
-                                 ("fleet 64x2x10s", (fb0, fb1))):
-        k = rotate_peak_sweep_kernel(u0, u1, cs)
-        p = rotate_peak_sweep_plain(u0, u1, cs)
-        check(torch.equal(k, p), f"sweep table not bit-equal ({shape_name})")
-    sweep_ms = cuda_ms(lambda: rotate_peak_sweep_kernel(b0, b1, cs))
+    # an angle slice, as the angle-parallel path passes: the kernel's
+    # one-angle loop (the canonical table runs its mirror-pair units)
+    cs120 = cs[:, 120:240].contiguous()
+
+    def sweep_equal(table, table_name):
+        for shape_name, (u0, u1) in (("4min stereo", (b0, b1)),
+                                     ("fleet 64x2x10s", (fb0, fb1))):
+            check(torch.equal(rotate_peak_sweep_kernel(u0, u1, table),
+                              rotate_peak_sweep_plain(u0, u1, table)),
+                  f"sweep table not bit-equal ({shape_name}, {table_name})")
+
+    sweep_equal(cs, "360 angles")
+    _build.reset_launches()
+    sweep_equal(cs120, "120 angles")
+    general_launches = _build.launches["rotate_peak_sweep"]
+    # NaN and inf samples: NaN propagates to the row's angles as in the
+    # plain twin (and JAX); the other rows stay bit-equal
+    with phase("sweep_nan_inf_check", card, times):
+        nb0 = fb0.reshape(-1, fb0.shape[-1]).clone()  # (128 rows, n)
+        nb1 = fb1.reshape(-1, fb1.shape[-1]).clone()
+        nb0[0, 1000] = float("nan")
+        nb1[1, 300_000] = float("inf")
+        nb0[2, 400_000], nb1[2, 400_000] = float("inf"), float("-inf")
+        for table in (cs, cs120):
+            k = rotate_peak_sweep_kernel(nb0, nb1, table)
+            p = rotate_peak_sweep_plain(nb0, nb1, table)
+            check(bool(torch.isclose(k, p, rtol=0, atol=0,
+                                     equal_nan=True).all()),
+                  "sweep table on NaN/inf samples differs from the plain "
+                  "twin's")
+        k = rotate_peak_sweep_kernel(nb0, nb1, cs)
+        check(bool(torch.isnan(k[0]).all()) and bool(torch.isnan(k[1, 0]))
+              and bool(torch.isposinf(k[1, 1:]).all())
+              and not bool(k[2].isfinite().any())
+              and bool(k[3:].isfinite().all()),
+              "NaN/inf rows of the sweep table")
+        del nb0, nb1
+    print("sweep: bit-equal to the plain twin at both shapes with 360 and "
+          "120 angles; NaN/inf samples equal with NaN equal to NaN")
+    sweep_ms = cuda_ms(lambda: rotate_peak_sweep_kernel(b0, b1, cs), 20)
+    sweep_fleet_ms = cuda_ms(lambda: rotate_peak_sweep_kernel(fb0, fb1, cs),
+                             20)
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    print(f"clocks after the sweep timing (sm, max sm): "
+          f"{clocks.stdout.strip()} [{card}]")
     sweep_plain_ms = cuda_ms(lambda: rotate_peak_sweep_plain(b0, b1, cs), 2)
-    # per pair and angle: two products, a sum and a running max
+    print(f"kernel rotate_peak_sweep at the fleet shape "
+          f"{tuple(fb0.shape)}: {sweep_fleet_ms!r} ms [{card}]")
     kernels.append(dict(
         name="rotate_peak_sweep", route="cuda",
         source="phaserotate_tpu_torch/csrc/rotate_peak.cu",
@@ -564,7 +682,17 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
         launches=launches["rotate_peak_sweep"], max_abs_err=0.0,
         ms=sweep_ms, plain_ms=sweep_plain_ms,
         **bound(nbytes(b0, b1, cs) + b0.shape[0] * 360 * 4,
-                4.0 * b0.numel() * 360),
+                sweep_flops_per_sample(cs) * b0.numel()),
+        library_ms=None, fleet_ms=sweep_fleet_ms))
+    kernels.append(dict(
+        name="rotate_peak_sweep_general", route="cuda",
+        source="phaserotate_tpu_torch/csrc/rotate_peak.cu",
+        replaces="phaserotate_tpu/kernels/rotate_peak.py:110",
+        launches=general_launches, max_abs_err=0.0,
+        ms=cuda_ms(lambda: rotate_peak_sweep_kernel(b0, b1, cs120)),
+        plain_ms=cuda_ms(lambda: rotate_peak_sweep_plain(b0, b1, cs120), 2),
+        **bound(nbytes(b0, b1, cs120) + b0.shape[0] * 120 * 4,
+                sweep_flops_per_sample(cs120) * b0.numel()),
         library_ms=None))
 
     def conv_yardstick(x, firlen):
@@ -704,7 +832,8 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
         ms_by_parsiz={str(p): dict(ms=k, plain_ms=pl, **fc_bound[p])
                       for p, (k, pl) in fc_ms.items()}))
 
-    # the two kernels no main path calls: counted here
+    # the two kernels no main path calls: counted here (the sweep's
+    # one-angle loop was counted above, in its checks)
     _build.reset_launches()
     mixf_err = float((fc.fused_rotate_fir(stems, turns, 3072)
                       - fc.fused_rotate_fir_plain(stems, turns, 3072)

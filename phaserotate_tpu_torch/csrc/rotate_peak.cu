@@ -7,36 +7,113 @@
 //
 // over the 360 half-degree angles of core/angles.all_angle_cos_sin.
 //
-// What bounds it on the card: arithmetic, not bytes.  Each sample pair is
-// 8 bytes read and 360 x (2 mul + add + abs-max) = 1,440 FP32 operations,
-// about 180 operations per byte, far above the H100's ~20 FP32 operations
-// per byte of HBM bandwidth.  The contraction depth is 2, so tensor cores
-// have nothing to do: this is CUDA-core work.
+// What bounds it on the card: instruction issue.  Each sample pair is 8
+// bytes read and 360 x (2 mul + add + abs-max) FP32 operations, far above
+// the H100's ~20 FP32 operations per byte of HBM bandwidth, and the
+// contraction depth of 2 leaves tensor cores nothing to do.  The products
+// must not fuse into an FMA (see Rounding), so every operation is its own
+// instruction, and an SM issues one instruction per warp scheduler per
+// clock: the count of instructions per sample, not FLOP/s, sets the time.
 //
-// What the design does about it: one block per (sample tile, row) stages
-// the tile's (b0, b1) pairs in shared memory once; each of its 128 threads
-// keeps the cos/sin of up to four angles and their running maxima in
-// registers, so every shared-memory read feeds several angles and the
-// inner loop is nothing but FP32 instructions.  The TPU carried its
-// running max across a sequential grid axis; Hopper blocks run in no
-// order, so tiles combine with atomicMax on the float's bits as unsigned
-// int (the values are >= +0 and the output starts at zeros, so the bit
-// order is the numeric order).  Rows times tiles ride gridDim.x, so any
+// What the design does about it: it issues fewer instructions.  The
+// canonical table is mirror-symmetric bit for bit: cos[360 - u] ==
+// -cos[u] and sin[360 - u] == sin[u] for u = 1..179.  So angles u and
+// 360 - u share both products, p = c*x and q = s*h: angle u is |p + q|
+// and angle 360 - u is |q - p|, which is what the plain version's
+// fl(fl(-c*x) + fl(s*h)) gives, since negation is exact.  That pair unit
+// is 2 FMUL, 2 FADD (the negation is an operand modifier) and 2 FMNMX (so
+// is the |.|): 3 instructions per sample-angle where one angle at a time
+// takes 4.  Angles 0 and 180 have no partner and form the one general
+// unit (4 FMUL, 2 FADD, 2 FMNMX), so 180 units cover the table with no
+// padded slot.
+//
+// Thread map (mirrored by kernels/rotate_peak.py SWEEP_*): one block per
+// (sample tile, row), 20 groups of 8 threads.  Group g holds units
+// 9g .. 9g + 8, unit u being angles (u, 360 - u), unit 0 angles (0, 180);
+// each of its threads keeps those units' cos/sin and 18 running maxima in
+// registers and walks samples i = lane (mod 8) of the tile staged in
+// shared memory, so one LDS.64 feeds 54 FP32 instructions and a warp's 8
+// distinct float2 addresses are one wavefront.  Warp 0 (groups 0-3) runs
+// its first unit in the general form, the other angle's cos/sin read from
+// the table, which keeps the warp on one path at 2 extra FMUL per group.
+// The 8 threads of a group then combine by shuffles, the groups through
+// shared memory, and tiles with one coalesced atomicMax per angle on the
+// float's bits as unsigned int (a warp's 32 angles are one L2 request,
+// where 18 atomics from each group leader would be 7x the requests, all
+// on the row's few lines).  The values are >= +0 and the output
+// starts at zeros, so the bit order is the numeric order; a NaN's bits,
+// sign cleared, order above +inf.  Rows times tiles ride gridDim.x, so any
 // number of rows fits one launch.
 //
-// Rounding: __fmul_rn / __fadd_rn keep the compiler from contracting
-// c*b0 + s*b1 into an FMA, so every value rounds exactly as the plain
-// PyTorch version (two products, one sum) does; max is exact, so the
-// table is bit-equal to it.  fmaxf drops NaN where torch.amax keeps it.
+// Before the pair units run, every block checks on the device, with no
+// host sync: that the table has 360 angles; that its entries are mirror
+// pairs, bit for bit; that each |cos| and |sin| is <= 1; and that every
+// staged sample is finite.  One __syncthreads_and combines the answers.
+// Under those conditions no product overflows and no sum is NaN, so
+// fmaxf, which drops NaN, loses nothing.  A block that fails any of them
+// (an angle slice, another table, a tile with a NaN or an inf) runs the
+// general loop instead: one angle at a time for any table, with the abs-max
+// taken on the bits as unsigned int, which propagates NaN as torch.amax and
+// jnp.max do.
+//
+// Rounding: __fmul_rn / __fadd_rn / __fsub_rn keep the compiler from
+// contracting c*b0 + s*b1 into an FMA, so every value rounds exactly as
+// the plain PyTorch version (two products, one sum) does; max is exact, so
+// the table is bit-equal to it, NaN for NaN.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+// The thread map; kernels/rotate_peak.py mirrors these as SWEEP_ANGLES,
+// SWEEP_GROUPS, SWEEP_LANES and SWEEP_UNITS.  Edit both together.
+constexpr int kSweepAngles = 360;  // the table the pair units serve
+constexpr int kSweepGroups = 20;   // groups of a block
+constexpr int kSweepLanes = 8;     // threads of a group
+constexpr int kSweepUnits = 9;     // units per thread
+constexpr int kSweepThreads = kSweepGroups * kSweepLanes;  // 160: 5 warps
+constexpr int kMaxAngles = 512;    // the wrapper's limit on any table
+static_assert(2 * kSweepGroups * kSweepUnits == kSweepAngles,
+              "every angle in exactly one unit");
+static_assert(32 % kSweepLanes == 0, "a group lies within one warp");
 
-template <int APT>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ bool finite(float v) {
+  return (__float_as_uint(v) & 0x7f800000u) != 0x7f800000u;
+}
+
+// |c| <= 1 and |s| <= 1, false for NaN: then the products of finite
+// samples are finite, and p + q and q - p are never NaN.
+__device__ __forceinline__ bool bounded(float c, float s) {
+  return fabsf(c) <= 1.f && fabsf(s) <= 1.f;
+}
+
+// One thread's 9 units over its samples i = lane (mod 8) of the tile.
+// Unit j's first angle is |p + q|; its second is |q - p|, or in the
+// general form (kGeneral0, unit 0 only) |cb0*x + sb0*h|.
+template <bool kGeneral0>
+__device__ __forceinline__ void pair_units(
+    const float2* __restrict__ tile, int len, int lane,
+    const float (&c)[kSweepUnits], const float (&s)[kSweepUnits],
+    float cb0, float sb0, float (&m1)[kSweepUnits],
+    float (&m2)[kSweepUnits]) {
+#pragma unroll 4
+  for (int i = lane; i < len; i += kSweepLanes) {
+    const float2 v = tile[i];
+#pragma unroll
+    for (int j = 0; j < kSweepUnits; ++j) {
+      const float p = __fmul_rn(c[j], v.x);
+      const float q = __fmul_rn(s[j], v.y);
+      const float y2 = kGeneral0 && j == 0
+                           ? __fadd_rn(__fmul_rn(cb0, v.x),
+                                       __fmul_rn(sb0, v.y))
+                           : __fsub_rn(q, p);
+      m1[j] = fmaxf(m1[j], fabsf(__fadd_rn(p, q)));
+      m2[j] = fmaxf(m2[j], fabsf(y2));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kSweepThreads)
 sweep_kernel(const float* __restrict__ b0, const float* __restrict__ b1,
              long long stride0, long long stride1,
              const float* __restrict__ cos_sin,
@@ -50,37 +127,86 @@ sweep_kernel(const float* __restrict__ b0, const float* __restrict__ b1,
   const float* r1 = b1 + row * stride1 + start;
   const long long remain = n - start;
   const int len = remain < tile_len ? static_cast<int>(remain) : tile_len;
-  for (int i = threadIdx.x; i < len; i += kThreads) {
-    tile[i] = make_float2(r0[i], r1[i]);
+  bool ok = true;
+  for (int i = threadIdx.x; i < len; i += kSweepThreads) {
+    const float x = r0[i], h = r1[i];
+    tile[i] = make_float2(x, h);
+    ok &= finite(x) & finite(h);
   }
 
-  float c[APT], s[APT], m[APT];
+  // this thread's units and the check of the table on their entries
+  const int g = threadIdx.x / kSweepLanes;
+  const int lane = threadIdx.x % kSweepLanes;
+  float c[kSweepUnits], s[kSweepUnits], cb0 = 0.f, sb0 = 0.f;
+  ok &= a_count == kSweepAngles;
+  if (a_count == kSweepAngles) {
 #pragma unroll
-  for (int j = 0; j < APT; ++j) {
-    const int a = threadIdx.x + j * kThreads;
-    c[j] = a < a_count ? cos_sin[a] : 0.f;
-    s[j] = a < a_count ? cos_sin[a_count + a] : 0.f;
-    m[j] = 0.f;
+    for (int j = 0; j < kSweepUnits; ++j) {
+      const int u = g * kSweepUnits + j;
+      const int b = u ? kSweepAngles - u : kSweepAngles / 2;
+      c[j] = cos_sin[u];
+      s[j] = cos_sin[kSweepAngles + u];
+      const float cb = cos_sin[b], sb = cos_sin[kSweepAngles + b];
+      ok &= bounded(c[j], s[j]) & bounded(cb, sb);
+      if (u) {  // a mirror pair: -cos and the same sin, bit for bit
+        ok &= (__float_as_uint(cb) ==
+               (__float_as_uint(c[j]) ^ 0x80000000u)) &
+              (__float_as_uint(sb) == __float_as_uint(s[j]));
+      }
+      if (j == 0) {
+        cb0 = cb;
+        sb0 = sb;
+      }
+    }
   }
-  __syncthreads();
-
+  unsigned int* o = out + row * a_count;
+  if (__syncthreads_and(ok)) {
+    float m1[kSweepUnits], m2[kSweepUnits];
+#pragma unroll
+    for (int j = 0; j < kSweepUnits; ++j) m1[j] = m2[j] = 0.f;
+    if (threadIdx.x < 32) {  // warp 0: unit 0 in the general form
+      pair_units<true>(tile, len, lane, c, s, cb0, sb0, m1, m2);
+    } else {
+      pair_units<false>(tile, len, lane, c, s, cb0, sb0, m1, m2);
+    }
+#pragma unroll
+    for (int j = 0; j < kSweepUnits; ++j) {
+#pragma unroll
+      for (int d = kSweepLanes / 2; d > 0; d >>= 1) {
+        m1[j] = fmaxf(m1[j], __shfl_xor_sync(0xffffffffu, m1[j], d));
+        m2[j] = fmaxf(m2[j], __shfl_xor_sync(0xffffffffu, m2[j], d));
+      }
+    }
+    // the groups' maxima by angle, in the tile's space once every thread
+    // is done with the tile
+    unsigned int* peak = reinterpret_cast<unsigned int*>(tile);
+    __syncthreads();
+    if (lane == 0) {
+#pragma unroll
+      for (int j = 0; j < kSweepUnits; ++j) {
+        const int u = g * kSweepUnits + j;
+        peak[u] = __float_as_uint(m1[j]);
+        peak[u ? kSweepAngles - u : kSweepAngles / 2] =
+            __float_as_uint(m2[j]);
+      }
+    }
+    __syncthreads();
+    for (int a = threadIdx.x; a < kSweepAngles; a += kSweepThreads) {
+      atomicMax(o + a, peak[a]);
+    }
+    return;
+  }
+  // the general loop: any table, NaN propagates through the bit order
+  for (int a = threadIdx.x; a < a_count; a += kSweepThreads) {
+    const float ca = cos_sin[a], sa = cos_sin[a_count + a];
+    unsigned int m = 0u;
 #pragma unroll 4
-  for (int i = 0; i < len; ++i) {
-    const float2 v = tile[i];
-#pragma unroll
-    for (int j = 0; j < APT; ++j) {
-      const float p = __fadd_rn(__fmul_rn(c[j], v.x), __fmul_rn(s[j], v.y));
-      m[j] = fmaxf(m[j], fabsf(p));
+    for (int i = 0; i < len; ++i) {
+      const float2 v = tile[i];
+      const float y = __fadd_rn(__fmul_rn(ca, v.x), __fmul_rn(sa, v.y));
+      m = max(m, __float_as_uint(fabsf(y)));
     }
-  }
-
-#pragma unroll
-  for (int j = 0; j < APT; ++j) {
-    const int a = threadIdx.x + j * kThreads;
-    if (a < a_count) {
-      atomicMax(out + row * a_count + a,
-                __float_as_uint(m[j]));
-    }
+    atomicMax(o + a, m);
   }
 }
 
@@ -92,34 +218,21 @@ extern "C" int prt_rotate_peak_sweep(const float* b0, const float* b1,
                                      int rows, long long n, int a_count,
                                      int tile_len, void* stream) {
   if (rows <= 0 || n <= 0) return 0;
+  if (a_count <= 0 || a_count > kMaxAngles) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const long long tiles = (n + tile_len - 1) / tile_len;
   const long long blocks = tiles * rows;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(blocks));
-  const int t = static_cast<int>(tiles);
-  const size_t smem = static_cast<size_t>(tile_len) * sizeof(float2);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  unsigned int* o = reinterpret_cast<unsigned int*>(out);
-  switch ((a_count + kThreads - 1) / kThreads) {
-    case 1:
-      sweep_kernel<1><<<grid, kThreads, smem, st>>>(
-          b0, b1, stride0, stride1, cos_sin, o, n, a_count, tile_len, t);
-      break;
-    case 2:
-      sweep_kernel<2><<<grid, kThreads, smem, st>>>(
-          b0, b1, stride0, stride1, cos_sin, o, n, a_count, tile_len, t);
-      break;
-    case 3:
-      sweep_kernel<3><<<grid, kThreads, smem, st>>>(
-          b0, b1, stride0, stride1, cos_sin, o, n, a_count, tile_len, t);
-      break;
-    case 4:
-      sweep_kernel<4><<<grid, kThreads, smem, st>>>(
-          b0, b1, stride0, stride1, cos_sin, o, n, a_count, tile_len, t);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  // the tile, which also holds the 360 maxima of the pair units' combine
+  const size_t smem =
+      static_cast<size_t>(tile_len > kSweepAngles / 2 ? tile_len
+                                                      : kSweepAngles / 2) *
+      sizeof(float2);
+  sweep_kernel<<<static_cast<unsigned>(blocks), kSweepThreads, smem,
+                 static_cast<cudaStream_t>(stream)>>>(
+      b0, b1, stride0, stride1, cos_sin, reinterpret_cast<unsigned int*>(out),
+      n, a_count, tile_len, static_cast<int>(tiles));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -123,36 +123,6 @@ def build() -> Path:
     so.with_suffix(".log").write_text(log)
     os.replace(tmp, so)  # atomic: a concurrent process never loads half a file
     return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{so.name}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{Path(name).stem}.o" for name in _SOURCES]
-    jobs = []
-    for name, obj in zip(_SOURCES, objs):  # one nvcc per source, at once
-        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(_CSRC / name)]
-        jobs.append((cmd, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    log, failed = [], None
-    for cmd, proc in jobs:
-        out = proc.communicate()[0]
-        log.append(out)
-        if proc.returncode != 0 and failed is None:
-            failed = _nvcc_failed(cmd, proc.returncode, out)
-    tmp = so.with_name(f"{tag}.tmp")
-    try:
-        if failed is not None:
-            raise failed
-        cmd = [_nvcc(), *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise _nvcc_failed(cmd, proc.returncode,
-                               proc.stdout + proc.stderr)
-    finally:
-        for obj in objs:
-            obj.unlink(missing_ok=True)
-    so.with_suffix(".log").write_text("".join(log))
-    os.replace(tmp, so)  # atomic: a concurrent process never loads half a file
-    return so
 
 
 def lib() -> ctypes.CDLL:

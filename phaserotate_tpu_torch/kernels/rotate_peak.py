@@ -18,8 +18,19 @@ from . import _build
 __all__ = ["peak_kernel", "peak_plain", "rotate_peak_sweep_kernel",
            "rotate_peak_sweep_plain"]
 
-_MAX_ANGLES = 512  # four angles per thread of a 128-thread block
-_MAX_TILE = 4096   # (b0, b1) tile in 32 KiB of static-sized shared memory
+# The sweep kernel's thread map, mirrored by csrc/rotate_peak.cu kSweep*
+# (edit both together).  Angles u and SWEEP_ANGLES - u of the canonical
+# table form unit u (1 <= u < SWEEP_ANGLES / 2), angles 0 and
+# SWEEP_ANGLES / 2 unit 0; group g of a block holds units
+# SWEEP_UNITS * g .. SWEEP_UNITS * (g + 1) - 1, and its lane l walks the
+# tile's samples i = l (mod SWEEP_LANES).
+SWEEP_ANGLES = 360
+SWEEP_GROUPS = 20
+SWEEP_LANES = 8
+SWEEP_UNITS = 9
+
+_MAX_ANGLES = 512  # the kernel's limit on any table (kMaxAngles)
+_MAX_TILE = 4096   # (b0, b1) tile in 32 KiB of shared memory
 
 
 def _rows(t: torch.Tensor, n: int) -> torch.Tensor:
@@ -42,7 +53,10 @@ def rotate_peak_sweep_kernel(
       cos_sin: (2, A) float32 stacked [cos; sin], A <= 512.
       tile_len: samples per block, a multiple of 4 up to 4096.
 
-    Returns (..., A) float32, bit-equal to the plain version.
+    Returns (..., A) float32, bit-equal to the plain version (NaN where
+    it has NaN).  The canonical 360-angle table runs the kernel's
+    mirror-pair units, any other table its one-angle loop; the kernel
+    tells them apart on the device.
     """
     if b0.device.type == "cpu":
         return rotate_peak_sweep_plain(b0, b1, cos_sin)

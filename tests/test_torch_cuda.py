@@ -53,12 +53,35 @@ def x(dev):
         rng.standard_normal((3, 20011)).astype(np.float32)).to(dev)
 
 
+def _equal_nan(a, b):
+    return bool(torch.isclose(a, b, rtol=0, atol=0, equal_nan=True).all())
+
+
 def test_sweep_bit_equal(x):
+    """The canonical table (mirror-pair units), an angle slice and a
+    random 360-angle table (the kernel's one-angle loop), on unaligned
+    views; then NaN and inf samples, equal with NaN equal to NaN."""
     cs = all_angle_cos_sin(x.device)
-    for tile in (4096, 1024, 100):
-        got = rotate_peak_sweep_kernel(x[:, 50:], x[:, :-50], cs, tile)
-        assert torch.equal(got, rotate_peak_sweep_plain(x[:, 50:],
-                                                        x[:, :-50], cs))
+    rng = np.random.default_rng(12)
+    tables = (cs, cs[:, 120:240], torch.from_numpy(
+        rng.uniform(-1, 1, (2, 360)).astype(np.float32)).to(x.device))
+    for table in tables:
+        for tile in (4096, 1024, 100):
+            got = rotate_peak_sweep_kernel(x[:, 50:], x[:, :-50], table, tile)
+            assert torch.equal(got, rotate_peak_sweep_plain(
+                x[:, 50:], x[:, :-50], table))
+    b0, b1 = x[:, 50:].clone(), x[:, :-50].clone()
+    b0[0, 777] = float("nan")                              # NaN in b0
+    b1[1, 5000] = float("inf")                             # +inf in b1
+    b0[2, 9000], b1[2, 9000] = float("inf"), float("-inf")  # one pair
+    for table in tables:
+        for tile in (4096, 1024, 100):
+            got = rotate_peak_sweep_kernel(b0, b1, table, tile)
+            want = rotate_peak_sweep_plain(b0, b1, table)
+            assert _equal_nan(got, want)
+    got = rotate_peak_sweep_kernel(b0, b1, cs)
+    assert torch.isnan(got[0]).all() and torch.isnan(got[1, 0])
+    assert torch.isposinf(got[1, 1:]).all() and not got[2].isfinite().any()
 
 
 @pytest.mark.parametrize("taps", [512, 1024, 3072, 8192, 16384])
