@@ -18,6 +18,16 @@ then, on the first CUDA device:
    host blocks with meters on, and ``AngleAnalyzer.analyze_many`` on 8
    fleet files with a checkpoint; it fails unless every kernel of those
    paths was launched;
+   then, with the counters at 0 again, the library's wider surface on
+   the same 4-minute file: ``refine_angle`` (24 steps from each channel's
+   table argmin, against the same call on the CPU), the CLI on 16-bit
+   AIFF, W64 and RF64 copies and a 10 s FLAC cut (analyze, then apply to
+   an output without an extension, which inherits the input's container;
+   angles and audio against the WAV runs), ``sweep_peaks_aux_pcm16`` on
+   ``read_audio_pcm16``'s int16 samples (bit-equal to the float path) and
+   one CLI analyze under ``PHASEROTATE_TPU_PROFILE`` (the trace names the
+   sweep and stream_conv kernels); the counts of both runs are added up
+   in the ``kernels`` line;
 3. checks the outputs: against the plain PyTorch path (the kernels' plain
    twins) on the card, against the repository's numpy CLI simulator on a
    small input, the streaming rotator against the bulk engine, block-size
@@ -343,6 +353,150 @@ def run_cli(args, cwd):
     return proc.stdout, proc.stderr
 
 
+def analyze_inprocess(cli, path):
+    """``cli.main([path])`` with its output captured: the angles."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        check(cli.main([path]) == 0, f"analyze {path}")
+    return result_angles(out.getvalue())
+
+
+def drive_wider_surface(tmp, card, times, audio, src, wav_angles,
+                        wav_applied, geom) -> dict:
+    """The second counted run: the continuous refinement, the CLI on the
+    other containers, the int16 ingest and the profile hook, on the
+    4-minute stereo file.  Returns the launch counts of this run."""
+    import torch
+
+    from phaserotate_tpu_torch import cli
+    from phaserotate_tpu_torch import io as pio
+    from phaserotate_tpu_torch.io import native
+    from phaserotate_tpu_torch.io.audio import _sniff
+    from phaserotate_tpu_torch.kernels import _build
+    from phaserotate_tpu_torch.search import refine_angle, sweep_peaks_aux
+    from phaserotate_tpu_torch.search.sweep import sweep_peaks_aux_pcm16
+
+    print(f"native host library available: {native.available()}")
+    sync()
+    _build.reset_launches()
+
+    # ---- refine_angle: 24 steps from each channel's table argmin ----
+    table = sweep_peaks_aux(audio, geom)[0].cpu().numpy()
+    refined = []
+    with phase("refine_angle_4min", card, times):
+        for c in range(audio.shape[0]):
+            a0 = int(table[c].argmin())
+            before = _build.launches["hilbert_small"]
+            refine_angle(audio[c], a0, geom, steps=24)  # first call
+            sync()
+            t0 = time.perf_counter()
+            theta, peak = refine_angle(audio[c], a0, geom, steps=24)
+            warm = time.perf_counter() - t0
+            check(_build.launches["hilbert_small"] == before + 2,
+                  "refine_angle did not launch stream_conv")
+            refined.append((c, a0, theta, peak, warm))
+    with phase("refine_angle_4min_on_the_cpu", card, times):
+        cpu = [refine_angle(audio[c], a0, geom, steps=24, device="cpu")
+               for c, a0, _, _, _ in refined]
+    for (c, a0, theta, peak, warm), (cpu_theta, cpu_peak) in zip(refined,
+                                                                 cpu):
+        grid = float(table[c, a0])
+        print(f"refine_angle ch{c}: theta {theta!r} units "
+              f"({theta / 2:.4f} deg) peak {peak!r}, grid a0 {a0} peak "
+              f"{grid!r}, gain {20 * np.log10(grid / peak):.6f} dB over the "
+              f"grid, {warm:.6f} s per warm call; on the CPU theta "
+              f"{cpu_theta!r} peak {cpu_peak!r} [{card}]")
+        check(np.isfinite(theta) and np.isfinite(peak), "refined values")
+        check(peak <= grid + 1e-6, f"refined peak {peak} above grid {grid}")
+        check(abs(theta - a0) < 4, f"refined angle {theta} left {a0}")
+        check(abs(peak - cpu_peak) < 2e-5,
+              f"refined peak on the card {peak} vs the CPU {cpu_peak}")
+
+    # ---- the CLI on other containers than WAV ----
+    n_cut = 10 * RATE
+    cut_wav = os.path.join(tmp, "cut.wav")
+    cut_out = os.path.join(tmp, "cut_out.wav")
+    pio.write_wav(cut_wav, audio[:, :n_cut], RATE, bits=16,
+                  float_format=False)
+    cut_angles = analyze_inprocess(cli, cut_wav)
+    cut_spec = ",".join(f"{a:g}" for a in cut_angles)
+    check(cli.main(["-a", cut_spec, cut_wav, cut_out]) == 0, "apply cut")
+    cut_applied = pio.read_audio(cut_out)[0]
+    pcm16 = dict(bits=16, float_format=False)
+    cases = (  # kind, writer, its keywords, samples, the WAV run's results
+        ("aiff", pio.write_aiff, pcm16, audio, wav_angles, wav_applied),
+        ("w64", pio.write_w64, pcm16, audio, wav_angles, wav_applied),
+        ("rf64", pio.write_rf64, pcm16, audio, wav_angles, wav_applied),
+        ("flac", pio.write_flac, dict(bits=16), audio[:, :n_cut],
+         cut_angles, cut_applied))
+    with phase("cli_formats_aiff_w64_rf64_4min_flac_10s", card, times):
+        for kind, writer, kw, x, want_angles, want_y in cases:
+            path = os.path.join(tmp, f"in.{kind}")
+            out = os.path.join(tmp, f"out_{kind}")  # no extension
+            t0 = time.perf_counter()
+            writer(path, x, RATE, **kw)
+            t_write = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back, rate, meta = pio.read_audio(path)
+            t_read = time.perf_counter() - t0
+            check(rate == RATE and np.array_equal(back, x),
+                  f"{kind}: the samples did not come back")
+            angles = analyze_inprocess(cli, path)
+            check(angles == want_angles,
+                  f"{kind}: angles {angles}, the WAV's {want_angles}")
+            spec = ",".join(f"{a:g}" for a in angles)
+            check(cli.main(["-a", spec, path, out]) == 0, f"apply {kind}")
+            check(_sniff(out) == kind, f"{kind}: output is {_sniff(out)}")
+            y, y_rate, y_meta = pio.read_audio(out)
+            check(y_rate == RATE and y.shape == want_y.shape,
+                  f"{kind}: applied file's shape or rate")
+            err = float(np.abs(y - want_y).max())
+            check(err <= 1.0 / 32768, f"{kind}: applied audio off by {err}")
+            print(f"cli {kind} ({x.shape[1] / RATE:g} s stereo, 16 bit, "
+                  f"{os.path.getsize(path)} bytes): write {t_write:.6f} s, "
+                  f"read {t_read:.6f} s (native "
+                  f"{native.available()}); angles equal to the WAV's, "
+                  f"applied {y_meta.container} output within {err!r} of the "
+                  f"WAV run's [{card}]")
+
+    # ---- the int16 ingest ----
+    with phase("sweep_pcm16_4min", card, times):
+        x16, rate, _ = pio.read_audio_pcm16(src)
+        check(x16.dtype == np.int16 and rate == RATE, "read_audio_pcm16")
+        t16, r16 = sweep_peaks_aux_pcm16(x16, geom)
+    tf, rf = sweep_peaks_aux(pio.read_audio(src)[0], geom)
+    check(t16.device.type == "cuda" and torch.equal(t16, tf)
+          and torch.equal(r16, rf),
+          "sweep_peaks_aux_pcm16 is not bit-equal to the float path")
+    print("sweep_peaks_aux_pcm16: table and rot0 bit-equal to "
+          "sweep_peaks_aux of read_audio's floats")
+
+    # ---- the profile hook ----
+    trace_dir = os.path.join(tmp, "trace")
+    os.environ["PHASEROTATE_TPU_PROFILE"] = trace_dir
+    try:
+        with phase("cli_profile_hook", card, times):
+            check(analyze_inprocess(cli, src) == wav_angles,
+                  "angles under the profile hook")
+    finally:
+        del os.environ["PHASEROTATE_TPU_PROFILE"]
+    traces = os.listdir(trace_dir)
+    check(len(traces) == 1, f"trace files: {traces}")
+    with open(os.path.join(trace_dir, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e["name"] for e in events if e.get("cat") == "kernel"}
+    found = sorted(k for k in ("sweep_kernel", "fft_forward", "conv_mix")
+                   if any(k in n for n in names))
+    print(f"profile hook: {len(events)} events, "
+          f"{os.path.getsize(os.path.join(trace_dir, traces[0]))} bytes, "
+          f"{len(names)} kernel names, of the port's: {found}")
+    check("sweep_kernel" in found, "the trace lacks sweep_kernel")
+    check(len(found) > 1, "the trace lacks a stream_conv kernel")
+    sync()
+    return dict(_build.launches)
+
+
 def main() -> int:
     import torch
 
@@ -494,9 +648,18 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
             check(count > 0,
                   f"kernel {name} was not launched by the main path")
 
+    # ---- 2b. the wider surface, counted from 0 again ----
+    y_inp, _, _ = read_wav(out_inp)
+    launches_wide = drive_wider_surface(tmp, card, times, audio, src,
+                                        sub_angles, y_inp, geom)
+    print(f"launches of the wider surface: {json.dumps(launches_wide)}")
+    for name in ("hilbert_small", "rotate_peak_sweep"):
+        check(launches_wide[name] > 0,
+              f"kernel {name} was not launched by the wider surface")
+    launches = {k: launches[k] + launches_wide[k] for k in launches}
+
     # ---- outputs are right ----
     y_sub, _, _ = read_wav(out_sub)
-    y_inp, _, _ = read_wav(out_inp)
     check(y_sub.shape == audio.shape and np.isfinite(y_sub).all(),
           "applied file: shape or finiteness")
     check(np.array_equal(y_sub, y_inp), "subprocess and in-process apply")

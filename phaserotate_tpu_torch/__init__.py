@@ -16,27 +16,51 @@ Public surface:
 * :class:`PhaseRotator`, :class:`StreamingRotator` — the plugin-role
   streaming engine (any host block size, meters, checkpoint/resume).
 * :class:`OfflineRotator`, :class:`AngleAnalyzer` — the offline models.
+* :func:`read_audio`, :func:`write_audio` — file I/O in every container
+  and codec of the JAX package (numpy on the host).
 """
 
-from .ops import rotate, rotate_fir
+from .core import (
+    MAXSAMPLE,
+    SUBSAMPLE,
+    OfflineGeometry,
+    StreamGeometry,
+    offline_geometry,
+    stream_geometry_for_rate,
+)
+from .ops import rotate, rotate_fir, rotate_spectral
 from .search import apply_angles, find_min_peak_angle
 
 __version__ = "0.1.0"
 
-__all__ = ["apply_angles", "find_min_peak_angle", "rotate", "rotate_fir",
-           "__version__"]
+__all__ = [
+    "MAXSAMPLE",
+    "SUBSAMPLE",
+    "OfflineGeometry",
+    "StreamGeometry",
+    "apply_angles",
+    "find_min_peak_angle",
+    "offline_geometry",
+    "rotate",
+    "rotate_fir",
+    "rotate_spectral",
+    "stream_geometry_for_rate",
+    "__version__",
+]
 
 _LAZY = {
     "PhaseRotator": "models",
     "OfflineRotator": "models",
     "AngleAnalyzer": "models",
     "StreamingRotator": "stream",
+    "read_audio": "io",
+    "write_audio": "io",
 }
 __all__ += sorted(_LAZY)
 
 
 def __getattr__(name):
-    """Lazy top-level access to the model classes."""
+    """Lazy top-level access to the model classes and audio I/O."""
     if name in _LAZY:
         import importlib
 

@@ -1,19 +1,24 @@
-"""phase-rotate compatible command-line interface (torch, WAV files).
+"""phase-rotate compatible command-line interface (torch).
 
 Same flags, validation, analysis semantics and output as
 ``phaserotate_tpu/cli.py`` (itself the reference CLI's workflow,
 cli/phase-rotate.cc:489-1011).  The work runs on the CUDA device;
 without one the command exits with an error unless the CPU is asked for
-(``main(argv, device="cpu")``).  Reads and writes WAV only; the other
-containers of the JAX package are not ported.
+(``main(argv, device="cpu")``).  Reads every container and codec of
+``io.read_audio`` (sniffed by content) and writes by the output's
+extension; an output without one inherits the input's container.
 
-    python -m phaserotate_tpu_torch.cli -vv in.wav             # analyze
+    python -m phaserotate_tpu_torch.cli -vv in.flac             # analyze
     python -m phaserotate_tpu_torch.cli -a 10,20 in.wav out.wav  # apply
+
+``PHASEROTATE_TPU_PROFILE=<dir>`` (the JAX CLI's variable, so scripts
+carry over) captures a ``torch.profiler`` trace of the whole run.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from typing import List, Optional
 
@@ -24,7 +29,7 @@ from . import __version__
 from .core.angles import MAXSAMPLE, SUBSAMPLE, angle_units_from_degrees
 from .core.device import resolve_device
 from .core.sizes import MAX_BLKSIZ, MIN_BLKSIZ, OfflineGeometry, default_blksiz
-from .io import WavFormatError, read_wav, write_wav
+from .io import WavFormatError, read_audio, write_audio
 from .search import apply_angles, select_min_peak_angles, sweep_peaks_aux
 from .search.minimize import coeff_to_db
 
@@ -105,6 +110,19 @@ def _print_gnuplot_row(table: np.ndarray, a: int, n_channels: int) -> None:
 def main(argv: Optional[List[str]] = None, device=None) -> int:
     """Run the command line ``argv``; ``device`` is where the audio is
     processed (default: the CUDA device)."""
+    # PHASEROTATE_TPU_PROFILE=<dir> captures a torch.profiler trace of
+    # the whole run (Chrome trace format): the tracing hook, without
+    # adding flags the reference CLI lacks.
+    profile_dir = os.environ.get("PHASEROTATE_TPU_PROFILE")
+    if profile_dir:
+        from .utils.profiling import device_trace
+
+        with device_trace(profile_dir):
+            return _main(argv, device)
+    return _main(argv, device)
+
+
+def _main(argv: Optional[List[str]] = None, device=None) -> int:
     args = _build_parser().parse_args(argv)
 
     if args.version:
@@ -131,7 +149,7 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         print(f"Error: {e}", file=sys.stderr)
         return 1
     try:
-        audio, rate, meta = read_wav(args.file)
+        audio, rate, meta = read_audio(args.file)
     except (OSError, WavFormatError) as e:
         print(f"Cannot open '{args.file}' for reading: {e}", file=sys.stderr)
         return 1
@@ -228,7 +246,7 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
     if args.out_file:
         y = apply_angles(x, angles, geom).cpu().numpy()
         try:
-            write_wav(args.out_file, y, rate, meta)
+            write_audio(args.out_file, y, rate, meta, like=args.file)
         except OSError as e:
             print(f"Cannot open '{args.out_file}' for writing: {e}",
                   file=sys.stderr)

@@ -27,9 +27,13 @@ __all__ = [
     "MAXSAMPLE",
     "degrees_to_turns",
     "turns_to_radians",
+    "wrap_turns_delta",
     "sin_cos_turns",
     "angle_units_from_degrees",
+    "wrap_angle_units",
     "sincos_lut",
+    "degrees_to_turns_np",
+    "sin_cos_units",
     "all_angle_cos_sin",
 ]
 
@@ -52,8 +56,23 @@ def degrees_to_turns(degrees, device=None) -> torch.Tensor:
     return torch.clamp(t, -0.5, 0.5)
 
 
+def degrees_to_turns_np(degrees) -> "np.ndarray":
+    """Numpy twin of :func:`degrees_to_turns` for host-side real-time
+    paths: identical float32 arithmetic, zero device involvement."""
+    t = np.asarray(degrees, np.float32) / np.float32(-360.0)
+    return np.clip(t, np.float32(-0.5), np.float32(0.5)).astype(
+        np.float32)
+
+
 def turns_to_radians(turns) -> torch.Tensor:
     return torch.as_tensor(turns, dtype=torch.float32) * float(_TWO_PI)
+
+
+def wrap_turns_delta(da) -> torch.Tensor:
+    """Shortest-path angle delta in turns: wrap |da| > 0.5 around +-180 deg
+    (src/phaserotate.c:676-683)."""
+    da = torch.as_tensor(da, dtype=torch.float32)
+    return torch.where(da.abs() > 0.5, da - torch.sign(da), da)
 
 
 def sin_cos_turns(turns):
@@ -70,6 +89,12 @@ def angle_units_from_degrees(degrees: float) -> int:
     """
     x = degrees * SUBSAMPLE
     return int(math.floor(x + 0.5) if x >= 0 else math.ceil(x - 0.5))
+
+
+def wrap_angle_units(a: int) -> int:
+    """Wrap an angle-unit index into [0, MAXSAMPLE)
+    (cli/phase-rotate.cc:281-284, 463)."""
+    return (a + MAXSAMPLE) % MAXSAMPLE
 
 
 @functools.lru_cache(maxsize=1)
@@ -92,6 +117,17 @@ def sincos_lut(device=None) -> tuple[torch.Tensor, torch.Tensor]:
     """The CLI's 0.5-degree-resolution (sin, cos) LUT as tensors."""
     s, c = _sincos_lut_np()
     return torch.tensor(s, device=device), torch.tensor(c, device=device)
+
+
+def sin_cos_units(a, device=None):
+    """(sin, cos) for integer angle units, via table lookup.  The tables
+    live where ``a`` does (a tensor), else on ``device`` (default CPU)."""
+    if device is None and isinstance(a, torch.Tensor):
+        device = a.device
+    s, c = sincos_lut(device)
+    a = torch.as_tensor(a, dtype=torch.int64, device=device)
+    a = torch.remainder(a + MAXSAMPLE, MAXSAMPLE)
+    return s[a], c[a]
 
 
 @functools.lru_cache(maxsize=1)

@@ -19,11 +19,12 @@ import functools
 import numpy as np
 import torch
 
-from .sizes import OfflineGeometry
+from .sizes import OfflineGeometry, StreamGeometry
 
 __all__ = [
     "design_hilbert_fir",
     "partition_fir_spectra",
+    "stream_fir_spectra",
     "offline_fir_spectrum",
 ]
 
@@ -84,6 +85,11 @@ def partition_fir_spectra(length: int, parsiz: int,
     """Partitioned FIR spectra, complex64 ``(n_segm, parsiz+1)``."""
     return torch.tensor(_partition_fir_spectra_np(length, parsiz),
                         device=device)
+
+
+def stream_fir_spectra(geom: StreamGeometry, device=None) -> torch.Tensor:
+    """Partitioned spectra for the streaming engine's geometry."""
+    return partition_fir_spectra(geom.firlen, geom.parsiz, device)
 
 
 def offline_fir_spectrum(geom: OfflineGeometry, device=None) -> torch.Tensor:

@@ -1,14 +1,19 @@
 """WAV file I/O with metadata passthrough.
 
+A copy of ``phaserotate_tpu/io/wav.py``, which holds no JAX: that
+package's ``__init__`` imports JAX, and this port runs where JAX is
+absent, so it keeps its own copy of the host-side (numpy/ctypes) file
+layer.  Only these lines differ; ``tests/test_torch_io.py`` holds every
+function here to its source.
+
 The host-side audio I/O layer (the role libsndfile plays for the reference
 CLI, cli/phase-rotate.cc:33, 541-563): reads/writes RIFF WAVE in PCM
 16/24/32 and float32, and round-trips the metadata the reference's
 ``copy_metadata`` preserves — LIST/INFO strings, ``cue `` markers and the
 ``bext`` broadcast-info chunk — as opaque or parsed chunks.
 
-Pure-Python implementation (no external audio libraries): a copy of
-``phaserotate_tpu/io/wav.py`` with its PCM conversions in numpy, because
-that package cannot be imported where JAX is absent.
+Pure-Python implementation (no external audio libraries in the image); a
+C++ fast path for bulk PCM conversion lives in native/ (io/native.py).
 """
 
 from __future__ import annotations
@@ -60,15 +65,15 @@ def _pcm_to_float(raw: bytes, bits: int, fmt: int) -> np.ndarray:
     if fmt != 1:
         raise WavFormatError(f"unsupported wFormatTag {fmt}")
     if bits == 16:
+        from . import native
+
+        if native.available():
+            return native.pcm16_to_f32(np.frombuffer(raw, "<i2"))
         return (np.frombuffer(raw, "<i2").astype(np.float32)) / 32768.0
     if bits == 24:
-        b = np.frombuffer(raw, np.uint8)
-        b = b[: 3 * (b.size // 3)].reshape(-1, 3)
-        v = (b[:, 0].astype(np.int32)
-             | (b[:, 1].astype(np.int32) << 8)
-             | (b[:, 2].astype(np.int32) << 16))
-        v = np.where(v & 0x800000, v - 0x1000000, v)
-        return v.astype(np.float32) / 8388608.0
+        from . import native
+
+        return native.pcm24_to_f32(np.frombuffer(raw, np.uint8))
     if bits == 32:
         return np.frombuffer(raw, "<i4").astype(np.float32) / 2147483648.0
     if bits == 8:
@@ -178,6 +183,24 @@ def read_wav(path: str) -> Tuple[np.ndarray, int, WavMetadata]:
     """
     wformat, bits, channels, rate, data, meta = _read_wav_chunks(path)
     flat = _pcm_to_float(data, bits, wformat)
+    n = len(flat) // channels
+    audio = flat[: n * channels].reshape(n, channels).T.copy()
+    return audio, rate, meta
+
+
+def read_wav_pcm16(path: str) -> Tuple[np.ndarray, int, WavMetadata]:
+    """Read a 16-bit PCM WAV without float conversion.
+
+    Returns ``((channels, n) int16, rate, metadata)`` — the raw-PCM
+    ingest path for device-side dequantization (sweep_peaks_aux_pcm16).
+    Raises WavFormatError for any other sample format; callers fall
+    back to :func:`read_wav` + quantize.
+    """
+    wformat, bits, channels, rate, data, meta = _read_wav_chunks(path)
+    if wformat != 1 or bits != 16:
+        raise WavFormatError(
+            f"{path}: not 16-bit integer PCM (fmt {wformat}, {bits} bit)")
+    flat = np.frombuffer(data, "<i2")
     n = len(flat) // channels
     audio = flat[: n * channels].reshape(n, channels).T.copy()
     return audio, rate, meta

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["compute_peak", "rotated_peak_sweep"]
+__all__ = ["compute_peak", "rotated_peak", "rotated_peak_sweep", "coeff_to_db"]
 
 # elements of one (rows, A, chunk) temporary of the sweep: 64 MiB of f32
 _SWEEP_TEMP_ELEMS = 1 << 24
@@ -21,6 +21,12 @@ def compute_peak(buf: torch.Tensor, current=0.0) -> torch.Tensor:
     (dsp_peak_calc.h:27)."""
     peak = buf.abs().amax(dim=-1) if buf.numel() else buf.new_zeros(())
     return torch.clamp(peak, min=float(current))
+
+
+def rotated_peak(b0: torch.Tensor, b1: torch.Tensor, sa, ca,
+                 current=0.0) -> torch.Tensor:
+    """Peak of ``ca*b0 + sa*b1`` (cli/phase-rotate.cc:98-121)."""
+    return compute_peak(ca * b0 + sa * b1, current)
 
 
 def rotated_peak_sweep(
@@ -54,3 +60,14 @@ def rotated_peak_sweep(
         p = c * rows[:, None, i : i + chunk] + s * hil[:, None, i : i + chunk]
         peaks = torch.maximum(peaks, p.abs().amax(dim=-1))
     return peaks.reshape(*lead, a)
+
+
+def coeff_to_db(coeff) -> torch.Tensor:
+    """Linear coefficient -> dBFS; -inf below 1e-15
+    (cli/phase-rotate.cc:76-83)."""
+    coeff = torch.as_tensor(coeff, dtype=torch.float32)
+    return torch.where(
+        coeff < 1e-15,
+        coeff.new_full((), -float("inf")),
+        20.0 * torch.log10(torch.clamp(coeff, min=1e-30)),
+    )

@@ -63,3 +63,19 @@ def find_min_peak_angle(
         link_channels=link_channels,
         rot0=rot0.cpu().numpy(),
     )
+
+
+def refine_angle(audio, theta0_units, geom, steps: int = 24, device=None):
+    """Continuous sub-grid refinement (lazy import; see
+    phaserotate_tpu_torch.search.gradient)."""
+    from .gradient import refine_angle as _impl
+
+    return _impl(audio, theta0_units, geom, steps=steps, device=device)
+
+
+def peak_at_angle(x, theta_units, geom, device=None):
+    """Hard peak at a continuous angle (lazy import; see
+    phaserotate_tpu_torch.search.gradient)."""
+    from .gradient import peak_at_angle as _impl
+
+    return _impl(x, theta_units, geom, device=device)

@@ -26,18 +26,19 @@ Alignment map (derived from cli/phase-rotate.cc:181-232, 389-428):
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.angles import MAXSAMPLE, all_angle_cos_sin, sincos_lut
-from ..core.device import as_f32
+from ..core.device import as_f32, resolve_device
 from ..core.fir import offline_fir_spectrum
 from ..core.sizes import OfflineGeometry
 from ..kernels.rotate_peak import rotate_peak_sweep_kernel
 from ..kernels.stream_conv import hilbert_small, small_conv_supported
 from ..ops.convolve import partitioned_convolve
 
-__all__ = ["sweep_peaks", "sweep_peaks_aux", "apply_angles",
-           "hilbert_offline", "aligned_pair"]
+__all__ = ["sweep_peaks", "sweep_peaks_aux", "sweep_peaks_aux_pcm16",
+           "apply_angles", "hilbert_offline", "aligned_pair"]
 
 
 def _offline_frames(x: torch.Tensor, parsiz: int) -> int:
@@ -133,6 +134,27 @@ def sweep_peaks_aux(audio, geom: OfflineGeometry, chunk: int = 4096,
     """Like :func:`sweep_peaks` but also returns the (...,) "rotated at 0"
     aux peak needed for bit-exact fine-pass parity (see minimize.py)."""
     x = as_f32(audio, device)
+    return _sweep_impl(x, geom, chunk)
+
+
+def sweep_peaks_aux_pcm16(audio_i16, geom: OfflineGeometry,
+                          chunk: int = 4096, device=None):
+    """:func:`sweep_peaks_aux` over raw int16 PCM.
+
+    Ingest path for 16-bit files: the int16 samples go to the device as
+    they are, half the bytes of float32 over the host->device link, and
+    are dequantized there (int16/32768, the PCM convention of
+    ``_pcm_to_float`` in io/wav.py).  Pair with ``io.read_audio_pcm16`` so
+    a 16-bit file goes disk -> device without ever materializing host
+    floats.
+    """
+    if not isinstance(audio_i16, torch.Tensor):
+        audio_i16 = np.asarray(audio_i16)
+    if audio_i16.dtype not in (torch.int16, np.int16):
+        raise TypeError(f"expected int16 PCM, got {audio_i16.dtype}")
+    x16 = torch.as_tensor(audio_i16,
+                          device=resolve_device(device, audio_i16))
+    x = x16.to(torch.float32) * (1.0 / 32768.0)
     return _sweep_impl(x, geom, chunk)
 
 

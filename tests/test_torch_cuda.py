@@ -265,3 +265,69 @@ def test_entry_points_default_to_the_card(dev):
     assert pr.find_min_peak_angle(xc, device="cuda").angles_units \
         == res.angles_units
     assert _build.launches["rotate_small"] == 3
+
+
+def _harmonics(n=48000):
+    t = np.arange(n) / 48000.0
+    return (0.6 * np.sin(2 * np.pi * 997 * t)
+            + 0.35 * np.sin(2 * np.pi * 1994 * t + 0.7)
+            + 0.15 * np.sin(2 * np.pi * 2991 * t + 1.9)).astype(np.float32)
+
+
+@pytest.mark.parametrize("blksiz,steps", [(1024, 24), (8192, 24),
+                                          (8192, 48)])
+def test_refine_angle_on_card_equals_cpu(dev, blksiz, steps):
+    """Numpy input goes to the card (the stream_conv launch counter
+    rises); the refined peak equals the CPU's within the float32 budget
+    of the descent, and is never above the grid start."""
+    from phaserotate_tpu_torch.core.sizes import OfflineGeometry
+    from phaserotate_tpu_torch.search import (peak_at_angle, refine_angle,
+                                              sweep_peaks)
+
+    x = _harmonics()
+    geom = OfflineGeometry(blksiz)
+    table = sweep_peaks(x[None], geom)[0].cpu().numpy()
+    a0 = int(table.argmin())
+    _build.reset_launches()
+    theta, peak = refine_angle(x, a0, geom, steps=steps)
+    assert _build.launches["hilbert_small"] == 1
+    _, cpu_peak = refine_angle(x, a0, geom, steps=steps, device="cpu")
+    assert _build.launches["hilbert_small"] == 1
+    assert np.isfinite(theta) and abs(theta - a0) < 4
+    assert peak <= table[a0] + 1e-6
+    assert abs(peak - cpu_peak) <= 2e-5
+    p = peak_at_angle(x, theta, geom)
+    assert p.device.type == "cuda" and p.ndim == 0
+    assert abs(float(p) - peak) <= 3e-6
+    assert abs(float(p) - float(peak_at_angle(x, theta, geom,
+                                              device="cpu"))) <= 3e-6
+
+
+def test_refine_angle_degenerate_on_card(dev):
+    from phaserotate_tpu_torch.core.sizes import OfflineGeometry
+    from phaserotate_tpu_torch.search import refine_angle
+
+    for x in (np.zeros(4096, np.float32), np.full(4096, 0.25, np.float32),
+              np.eye(1, 4096, 2048, dtype=np.float32)[0]):
+        theta, peak = refine_angle(x, 0, OfflineGeometry(1024), steps=16)
+        assert np.isfinite(theta) and np.isfinite(peak)
+        assert peak <= np.abs(x).max() + 2e-6
+
+
+@pytest.mark.parametrize("shape", [(2, 50000), (3, 2, 20011)])
+def test_sweep_pcm16_bit_equal_on_card(dev, shape):
+    from phaserotate_tpu_torch.core.sizes import OfflineGeometry
+    from phaserotate_tpu_torch.search import sweep_peaks_aux
+    from phaserotate_tpu_torch.search.sweep import sweep_peaks_aux_pcm16
+
+    rng = np.random.default_rng(5)
+    x16 = (rng.standard_normal(shape) * 7000).clip(
+        -32768, 32767).astype(np.int16)
+    geom = OfflineGeometry(8192)
+    table, rot0 = sweep_peaks_aux_pcm16(x16, geom)
+    assert table.device.type == "cuda"
+    floats = x16.astype(np.float32) / 32768.0
+    w_table, w_rot0 = sweep_peaks_aux(floats, geom)
+    assert torch.equal(table, w_table) and torch.equal(rot0, w_rot0)
+    with pytest.raises(TypeError):
+        sweep_peaks_aux_pcm16(floats, geom)

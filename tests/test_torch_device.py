@@ -19,7 +19,9 @@ from phaserotate_tpu_torch.core.device import as_f32
 from phaserotate_tpu_torch.core.sizes import OfflineGeometry
 from phaserotate_tpu_torch.io import write_wav
 from phaserotate_tpu_torch.ops.rotate import hilbert_fir
-from phaserotate_tpu_torch.search import apply_angles, sweep_peaks
+from phaserotate_tpu_torch.search import (apply_angles, peak_at_angle,
+                                          refine_angle, sweep_peaks)
+from phaserotate_tpu_torch.search.sweep import sweep_peaks_aux_pcm16
 from phaserotate_tpu_torch.stream import rotate_streamed
 
 _X = (0.5 * np.sin(np.arange(2 * 3000) * 0.05)).astype(np.float32)
@@ -38,6 +40,11 @@ ENTRY_POINTS = {
     "StreamingRotator": lambda: pr.StreamingRotator(rate=48000),
     "OfflineRotator": lambda: pr.OfflineRotator(method="fir")(_X, 35.0),
     "AngleAnalyzer": lambda: pr.AngleAnalyzer(blksiz=1024).analyze(_X),
+    "refine_angle": lambda: refine_angle(_X[0], 10, OfflineGeometry(1024)),
+    "peak_at_angle": lambda: peak_at_angle(_X[0], 10.5,
+                                           OfflineGeometry(1024)),
+    "sweep_peaks_aux_pcm16": lambda: sweep_peaks_aux_pcm16(
+        (_X * 32767).astype(np.int16), OfflineGeometry(1024)),
 }
 
 
