@@ -20,14 +20,34 @@ then, on the first CUDA device:
    paths was launched;
    then, with the counters at 0 again, the library's wider surface on
    the same 4-minute file: ``refine_angle`` (24 steps from each channel's
-   table argmin, against the same call on the CPU), the CLI on 16-bit
-   AIFF, W64 and RF64 copies and a 10 s FLAC cut (analyze, then apply to
-   an output without an extension, which inherits the input's container;
+   table argmin; channel 0 against the same call on the CPU), the
+   CLI on 16-bit AIFF, W64 and RF64 copies and a 3 s FLAC cut (analyze,
+   apply to an output without an extension, which inherits the container;
    angles and audio against the WAV runs), ``sweep_peaks_aux_pcm16`` on
    ``read_audio_pcm16``'s int16 samples (bit-equal to the float path) and
    one CLI analyze under ``PHASEROTATE_TPU_PROFILE`` (the trace names the
-   sweep and stream_conv kernels); the counts of both runs are added up
-   in the ``kernels`` line;
+   sweep and stream_conv kernels);
+   then, with the counters at 0 a third time, the catalogue path: 48
+   stereo WAV files (and two AIFF copies) made from the seed, in two
+   length buckets, half of them at -54 dBFS; the fleet CLI on them as
+   subprocesses (``--checkpoint --transport pcm16``, then ``--apply
+   --outdir`` on eight of them with the default transport) and once in
+   this process to hit the checkpoint (every line ``(cached sweep)``, no
+   launch); ``fleet.analyze_paths`` per transport
+   (pcm16, packed, auto: equal tables and angles, ``auto`` shipping both
+   kinds of batch; files/s, wire bytes and peak device memory printed);
+   six files against ``find_min_peak_angle`` and ``_apply_one``; one batch
+   step by step (decode, pack, copy, unpack, sweep, selection), after
+   the counts are read and with ``hilbert_small`` and the sweep kernel
+   held to their plain twins at the fleet's batch shapes (8 x 2 x
+   4,194,304 and 8 x 2 x 8,388,608, zero-padded tails included); and the
+   ``parallel`` package on meshes that name the card four (three) times:
+   sample sharding of the 4-minute file (1-D and 2 x 2) within 2e-5 of
+   the unsharded sweep, angle sharding on three shards (the sweep kernel's
+   one-angle loop) and files sharding of the 64 x 2 x 10 s search
+   bit-equal to it, ``batch_rotate`` and ``sharded_rotate`` within 1e-5 of
+   ``rotate_fir``; the counts of the three runs are added up in the
+   ``kernels`` line;
 3. checks the outputs: against the plain PyTorch path (the kernels' plain
    twins) on the card, against the repository's numpy CLI simulator on a
    small input, the streaming rotator against the bulk engine, block-size
@@ -35,8 +55,9 @@ then, on the first CUDA device:
    analysis;
 4. holds each kernel against its plain twin on the same CUDA tensors at
    the main paths' shapes (sweep table and peak bit-equal, conv < 1e-5,
-   mixes < 2e-5, fused_conv at every supported partition size), counting
-   the two kernels no main path calls (``fused_rotate_fir``, ``peak``);
+   mixes < 2e-5, fused_conv at every supported partition size); the two
+   kernels no main path calls (``fused_rotate_fir``, ``peak``) have
+   ``launches`` 0 and this check's own count under ``check_launches``;
    the sweep also with a 120-angle slice of the table (the kernel's
    one-angle loop, ``rotate_peak_sweep_general``) and on NaN and inf
    samples (equal with NaN equal to NaN);
@@ -344,12 +365,13 @@ def result_angles(text: str):
         r"^Channel: +\d+ Phase: +(-?[\d.]+) deg", text, re.M)]
 
 
-def run_cli(args, cwd):
-    proc = subprocess.run([sys.executable, "-m", "phaserotate_tpu_torch.cli",
-                           *args], cwd=cwd, capture_output=True, text=True,
-                          timeout=600)
+def run_cli(args, cwd, module="cli"):
+    proc = subprocess.run(
+        [sys.executable, "-m", f"phaserotate_tpu_torch.{module}", *args],
+        cwd=cwd, capture_output=True, text=True, timeout=600)
     check(proc.returncode == 0,
-          f"cli {args} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+          f"{module} {args[:8]} exited {proc.returncode}:\n"
+          f"{proc.stderr[-4000:]}")
     return proc.stdout, proc.stderr
 
 
@@ -396,25 +418,28 @@ def drive_wider_surface(tmp, card, times, audio, src, wav_angles,
             check(_build.launches["hilbert_small"] == before + 2,
                   "refine_angle did not launch stream_conv")
             refined.append((c, a0, theta, peak, warm))
-    with phase("refine_angle_4min_on_the_cpu", card, times):
-        cpu = [refine_angle(audio[c], a0, geom, steps=24, device="cpu")
-               for c, a0, _, _, _ in refined]
-    for (c, a0, theta, peak, warm), (cpu_theta, cpu_peak) in zip(refined,
-                                                                 cpu):
+    # against the same call on the CPU, on the whole of channel 0
+    with phase("refine_angle_4min_ch0_on_the_cpu", card, times):
+        cpu_theta, cpu_peak = refine_angle(audio[0], refined[0][1], geom,
+                                           steps=24, device="cpu")
+    for c, a0, theta, peak, warm in refined:
         grid = float(table[c, a0])
         print(f"refine_angle ch{c}: theta {theta!r} units "
               f"({theta / 2:.4f} deg) peak {peak!r}, grid a0 {a0} peak "
               f"{grid!r}, gain {20 * np.log10(grid / peak):.6f} dB over the "
-              f"grid, {warm:.6f} s per warm call; on the CPU theta "
-              f"{cpu_theta!r} peak {cpu_peak!r} [{card}]")
+              f"grid, {warm:.6f} s per warm call [{card}]")
         check(np.isfinite(theta) and np.isfinite(peak), "refined values")
         check(peak <= grid + 1e-6, f"refined peak {peak} above grid {grid}")
         check(abs(theta - a0) < 4, f"refined angle {theta} left {a0}")
-        check(abs(peak - cpu_peak) < 2e-5,
-              f"refined peak on the card {peak} vs the CPU {cpu_peak}")
+    card_theta, card_peak = refined[0][2:4]
+    print(f"refine_angle, 4 min of ch0: theta {card_theta!r} peak "
+          f"{card_peak!r} on the card, theta {cpu_theta!r} peak {cpu_peak!r} "
+          f"on the CPU")
+    check(abs(card_peak - cpu_peak) < 2e-5,
+          f"refined peak on the card {card_peak} vs the CPU {cpu_peak}")
 
     # ---- the CLI on other containers than WAV ----
-    n_cut = 10 * RATE
+    n_cut = 3 * RATE
     cut_wav = os.path.join(tmp, "cut.wav")
     cut_out = os.path.join(tmp, "cut_out.wav")
     pio.write_wav(cut_wav, audio[:, :n_cut], RATE, bits=16,
@@ -430,7 +455,7 @@ def drive_wider_surface(tmp, card, times, audio, src, wav_angles,
         ("rf64", pio.write_rf64, pcm16, audio, wav_angles, wav_applied),
         ("flac", pio.write_flac, dict(bits=16), audio[:, :n_cut],
          cut_angles, cut_applied))
-    with phase("cli_formats_aiff_w64_rf64_4min_flac_10s", card, times):
+    with phase("cli_formats_aiff_w64_rf64_4min_flac_3s", card, times):
         for kind, writer, kw, x, want_angles, want_y in cases:
             path = os.path.join(tmp, f"in.{kind}")
             out = os.path.join(tmp, f"out_{kind}")  # no extension
@@ -495,6 +520,380 @@ def drive_wider_surface(tmp, card, times, audio, src, wav_angles,
     check(len(found) > 1, "the trace lacks a stream_conv kernel")
     sync()
     return dict(_build.launches)
+
+
+@contextlib.contextmanager
+def wire_log(log: list):
+    """Record what each fleet dispatch ships: (transport, wire bytes,
+    samples).  The fleet looks its two sweep entry points up at call
+    time, so recording wrappers around them see every batch."""
+    from phaserotate_tpu_torch.search import packed, sweep
+
+    saved = (packed.sweep_peaks_aux_packed, sweep.sweep_peaks_aux_pcm16)
+
+    def packed_logged(pk, *a, **kw):
+        log.append(("packed", pk.wire_bytes,
+                    int(np.prod(pk.shape[:-1])) * pk.n))
+        return saved[0](pk, *a, **kw)
+
+    def pcm16_logged(x16, *a, **kw):
+        log.append(("pcm16", x16.nbytes, x16.size))
+        return saved[1](x16, *a, **kw)
+
+    packed.sweep_peaks_aux_packed = packed_logged
+    sweep.sweep_peaks_aux_pcm16 = pcm16_logged
+    try:
+        yield
+    finally:
+        packed.sweep_peaks_aux_packed, sweep.sweep_peaks_aux_pcm16 = saved
+
+
+def make_catalogue(tmp: str, rng, dev) -> list:
+    """48 stereo 48 kHz 16-bit WAV files from the seed, in two buckets of
+    the fleet at blksiz 8192: 40 short ones (bucket of 512 blocks, 87.4 s)
+    and 8 of 100-120 s (bucket of 1024 blocks).  Half are at -54 dBFS; the
+    loud half carries uniform noise of +-0.25 on top, 16 bits a sample at
+    any predictor order.  The fleet zero-pads a file to its bucket and
+    zeros pack to nothing, so the 20 loud short files are 80-87 s (they
+    fill their bucket, and a batch of them ships as pcm16 under ``auto``)
+    and the quiet ones 50-80 s; in path order, loud before quiet.  Files 0
+    and 20 also get a 16-bit AIFF copy, at the end of the list.  Returns
+    the paths."""
+    import torch
+
+    from phaserotate_tpu_torch.io import write_aiff, write_wav
+
+    groups = (  # name, files, seconds of the loud half, of the quiet half
+        ("short", 40, (80.0, 87.0), (50.0, 80.0)),
+        ("long", 8, (100.0, 120.0), (100.0, 120.0)))
+    paths, copies = [], []
+    pcm16 = dict(bits=16, float_format=False)
+    for name, files, loud_s, quiet_s in groups:
+        secs = np.concatenate([rng.uniform(*loud_s, files // 2),
+                               rng.uniform(*quiet_s, files // 2)])
+        n_max = int(secs.max() * RATE) + 1
+        audio = music_batch(rng, (files, 2), n_max, dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + files)
+        audio[: files // 2] += 0.5 * torch.rand(
+            (files // 2, 2, n_max), generator=gen, device=dev) - 0.25
+        audio[files // 2 :] *= 10.0 ** (-54.0 / 20.0)
+        audio = audio.cpu().numpy()
+        for i in range(files):
+            x = audio[i, :, : int(secs[i] * RATE)]
+            path = os.path.join(tmp, f"{name}{i:02d}.wav")
+            write_wav(path, x, RATE, **pcm16)
+            paths.append(path)
+            if name == "short" and i in (0, files // 2):
+                copy = os.path.join(tmp, f"{name}{i:02d}.aiff")
+                write_aiff(copy, x, RATE, **pcm16)
+                copies.append(copy)
+        del audio
+    return paths + copies
+
+
+def staging_breakdown(paths, geom, dev, card: str, label: str) -> None:
+    """Where one fleet batch's time goes, step by step with a device
+    synchronize after each: decode, pack, copy, unpack, sweep, selection.
+    The fleet overlaps the first two with the rest; here they run in
+    turn.  Then the batch's two kernels against their plain twins at this
+    shape, zero-padded tails included: ``hilbert_small`` within 1e-5, the
+    sweep table bit-equal."""
+    import torch
+
+    from phaserotate_tpu_torch.core.angles import all_angle_cos_sin
+    from phaserotate_tpu_torch.fleet import _bucket_key, _probe
+    from phaserotate_tpu_torch.io import read_audio_pcm16
+    from phaserotate_tpu_torch.search import select_min_peak_angles_batch
+    from phaserotate_tpu_torch.search.packed import (
+        pack_adaptive, pack_residual, packed_bits_per_sample,
+        unpack_residual)
+    from phaserotate_tpu_torch.kernels import stream_conv as sc
+    from phaserotate_tpu_torch.kernels.rotate_peak import (
+        rotate_peak_sweep_kernel, rotate_peak_sweep_plain)
+    from phaserotate_tpu_torch.search.sweep import _sweep_impl, aligned_pair
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    n_pad = max(_bucket_key(*_probe(p), geom.parsiz)[2] for p in paths)
+
+    def decode():
+        buf = np.zeros((len(paths), 2, n_pad), np.int16)
+        for i, p in enumerate(paths):
+            audio = read_audio_pcm16(p)[0]
+            buf[i, :, : audio.shape[1]] = audio
+        return buf
+
+    buf, t_decode = timed(decode)
+    pk, t_pack = timed(lambda: pack_residual(buf))
+    scratch = np.empty(max(1 << 16, buf.size * 16 // 32), np.int32)
+    adaptive, t_adaptive = timed(lambda: pack_adaptive(buf, scratch))
+    x16, t_copy16 = timed(lambda: torch.as_tensor(buf, device=dev))
+    parts, t_copy_pk = timed(lambda: [
+        torch.as_tensor(a, device=dev)
+        for a in (pk.words, pk.widths, pk.woffs, pk.order)])
+    x_pk, t_unpack = timed(lambda: unpack_residual(*parts, pk.n))
+    x_16, t_dequant = timed(
+        lambda: x16.to(torch.float32) * (1.0 / 32768.0))
+    check(torch.equal(x_pk.reshape(buf.shape), x_16),
+          f"{label}: the unpack and the int16 samples differ")
+    (table, rot0), t_sweep = timed(lambda: _sweep_impl(x_16, geom, 4096))
+    _, t_select = timed(lambda: select_min_peak_angles_batch(
+        table.cpu().numpy(), rot0=rot0.cpu().numpy()))
+    print(f"fleet batch {label} ({len(paths)} files x 2 x {n_pad} samples, "
+          f"{buf.nbytes} bytes as pcm16; packed {pk.wire_bytes} bytes, "
+          f"{packed_bits_per_sample(pk):.4f} bits/sample; auto ships "
+          f"{'packed' if adaptive is not None else 'pcm16'}): "
+          f"decode {t_decode:.6f} s, pack {t_pack:.6f} s (adaptive "
+          f"{t_adaptive:.6f} s), copy pcm16 {t_copy16:.6f} s / packed "
+          f"{t_copy_pk:.6f} s, unpack {t_unpack:.6f} s (dequantize int16 "
+          f"{t_dequant:.6f} s), sweep {t_sweep:.6f} s, selection and "
+          f"readback {t_select:.6f} s [{card}]")
+    del x_pk, x16, parts, table, rot0
+    conv_err = float((sc.hilbert_small(x_16, geom.parsiz)
+                      - sc.hilbert_small_plain(x_16, geom.parsiz)
+                      ).abs().max())
+    check(conv_err < 1e-5, f"{label}: hilbert_small vs plain: {conv_err}")
+    b0, b1, _, _ = aligned_pair(x_16, geom)
+    cs = all_angle_cos_sin(dev)
+    got = rotate_peak_sweep_kernel(b0, b1, cs)
+    want, t_plain = timed(lambda: rotate_peak_sweep_plain(b0, b1, cs))
+    check(torch.equal(got, want),
+          f"{label}: sweep table not bit-equal to the plain twin's")
+    print(f"fleet batch {label} {tuple(x_16.shape)}: hilbert_small vs plain "
+          f"max err {conv_err!r}; sweep table bit-equal to the plain twin "
+          f"(plain sweep {t_plain:.6f} s)")
+
+
+def drive_catalogue(tmp, dev, card, times, x4, fleet, stems, stem_degs,
+                    geom) -> dict:
+    """The third counted run: the fleet front end over a catalogue on
+    disk, and the ``parallel`` package on meshes that name the one card
+    several times over.  Returns this run's launch counts, with the
+    one-angle-loop launches of the angle-sharded sweep under
+    ``rotate_peak_sweep_general``."""
+    import torch
+
+    from phaserotate_tpu_torch import fleet as pfleet
+    from phaserotate_tpu_torch import rotate
+    from phaserotate_tpu_torch.io import read_audio
+    from phaserotate_tpu_torch.kernels import _build
+    from phaserotate_tpu_torch.parallel import (
+        angle_sharded_sweep_peaks, batch_find_min_peak_angles, batch_rotate,
+        batch_sweep_peaks, file_mesh, grid_mesh, sharded_rotate,
+        sharded_sweep_peaks)
+    from phaserotate_tpu_torch.search import (
+        find_min_peak_angle, select_min_peak_angles_batch, sweep_peaks_aux)
+
+    rng = np.random.default_rng(SEED + 9)
+    cat = os.path.join(tmp, "catalogue")
+    os.makedirs(cat)
+    t0 = time.perf_counter()
+    paths = make_catalogue(cat, rng, dev)
+    n_bytes = sum(os.path.getsize(p) for p in paths)
+    audio_s = sum(pfleet._probe(p)[2] for p in paths) / RATE
+    print(f"catalogue: {len(paths)} files, {n_bytes} bytes, "
+          f"{audio_s:.1f} s of stereo audio, made in "
+          f"{time.perf_counter() - t0:.6f} s")
+    batch = 8
+    sync()
+    _build.reset_launches()
+
+    # ---- the fleet CLI as a user runs it (subprocesses) ----
+    ck_cli = os.path.join(tmp, "fleet_cli.npz")
+    # pcm16 by name: on this host the default, auto, spends 4-5x the time
+    # packing (the fleet_analyze phases below time all three transports)
+    flags = ["--batch", str(batch), "--checkpoint", ck_cli,
+             "--transport", "pcm16"]
+    with phase("fleet_cli_analyze_subprocess", card, times):
+        cli_out, _ = run_cli(flags + paths, REPO, module="fleet")
+    shown = re.findall(r"^(\S+)  ch (\d): (?:([+-][\d.]+) deg|no improvement)"
+                       r"(  \(cached sweep\))?$", cli_out, re.M)
+    check(len(shown) == 2 * len(paths) == len(cli_out.splitlines()),
+          f"fleet CLI printed {len(shown)} result lines")
+    check(not any(cached for *_, cached in shown),
+          "the first fleet run hit a checkpoint")
+    cli_angles = {}
+    for path, _, deg, _ in shown:
+        cli_angles.setdefault(path, []).append(float(deg or 0.0))
+
+    # the second run, in this process so that its launches can be read
+    before = dict(_build.launches)
+    out = io.StringIO()
+    with phase("fleet_cli_cached_inprocess", card, times), \
+            contextlib.redirect_stdout(out):
+        check(pfleet.main(flags + paths) == 0, "cached fleet run")
+    lines = out.getvalue().splitlines()
+    check(len(lines) == 2 * len(paths)
+          and all(ln.endswith("  (cached sweep)") for ln in lines),
+          "the second fleet run did not serve every file from the checkpoint")
+    # the first run prints bucket by bucket, the cached one in path order
+    check(sorted(ln.replace("  (cached sweep)", "") for ln in lines)
+          == sorted(cli_out.splitlines()),
+          "cached fleet run printed other angles")
+    check(dict(_build.launches) == before,
+          "the cached fleet run launched a kernel")
+
+    applied = paths[:3] + paths[20:23] + paths[-2:]
+    outdir = os.path.join(tmp, "fleet_out")
+    # without --checkpoint and --transport: the analysis runs again, on
+    # the default transport (auto), as a user's first call does
+    with phase("fleet_cli_apply_subprocess_8_files", card, times):
+        apply_out, apply_err = run_cli(
+            ["--batch", str(batch), "--apply", "--outdir", outdir] + applied,
+            REPO, module="fleet")
+    check(apply_err.count("wrote ") == len(applied), "fleet --apply output")
+    check(sorted(apply_out.splitlines())
+          == sorted(ln for ln in cli_out.splitlines()
+                    if ln.split("  ch ")[0] in applied),
+          "the fleet CLI on the default transport printed other angles")
+
+    # ---- analyze_paths in this process, once per transport ----
+    results, tables = {}, {}
+    for transport in ("pcm16", "packed", "auto"):
+        ck = os.path.join(tmp, f"fleet_{transport}.npz")
+        log: list = []
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with wire_log(log), phase(f"fleet_analyze_{transport}", card, times):
+            results[transport] = pfleet.analyze_paths(
+                paths, batch=batch, checkpoint=ck, transport=transport)
+        peak = torch.cuda.max_memory_allocated()
+        with np.load(ck) as z:
+            tables[transport] = {k: z[k] for k in z.files}
+        wall = times[f"fleet_analyze_{transport}"]
+        kinds = [k for k, _, _ in log]
+        wire = sum(b for _, b, _ in log)
+        samples = sum(n for _, _, n in log)
+        print(f"fleet analyze {transport}: {len(paths) / wall:.2f} files/s, "
+              f"{audio_s / wall:.1f}x realtime, {wall:.6f} s; "
+              f"{len(log)} batches ({kinds.count('packed')} packed, "
+              f"{kinds.count('pcm16')} pcm16), {wire} wire bytes, "
+              f"{8.0 * wire / samples:.4f} bits/sample of the padded batch; "
+              f"peak device memory {peak} bytes ({peak - base} above the "
+              f"{base} held before) [{card}]")
+        if transport == "auto":
+            check(0 < kinds.count("packed") < len(kinds),
+                  f"auto shipped {kinds}: not both kinds of batch")
+    with np.load(ck_cli) as z:
+        tables["cli"] = {k: z[k] for k in z.files}
+    for transport in ("packed", "auto", "cli"):
+        check(tables[transport].keys() == tables["pcm16"].keys()
+              and all(np.array_equal(tables[transport][k], v)
+                      for k, v in tables["pcm16"].items()),
+              f"fleet tables of {transport} differ from pcm16's")
+        if transport != "cli":
+            check(all(results[transport][p][0].angles_units
+                      == results["pcm16"][p][0].angles_units for p in paths),
+                  f"fleet angles of {transport} differ from pcm16's")
+    for p in paths:
+        check(list(results["pcm16"][p][0].angles_deg) == cli_angles[p],
+              f"fleet CLI and analyze_paths differ on {p}")
+    for wav, copy in zip((paths[0], paths[20]), paths[-2:]):
+        check(results["pcm16"][wav][0].angles_units
+              == results["pcm16"][copy][0].angles_units,
+              f"{copy}: other angles than its WAV twin")
+    print(f"fleet: tables of pcm16, packed, auto and the CLI run "
+          f"np.array_equal over {len(paths)} files; angles equal")
+    with phase("fleet_per_file_search_6_files", card, times):
+        for p in applied[:6]:
+            audio, rate, _ = read_audio(p)
+            want = find_min_peak_angle(audio, rate=rate)
+            check(results["pcm16"][p][0].angles_units == want.angles_units,
+                  f"fleet vs find_min_peak_angle on {p}")
+    single = os.path.join(tmp, "fleet_single")
+    os.makedirs(single)
+    apply_err = 0.0
+    with phase("fleet_apply_one_6_files", card, times):
+        for p in applied[:6]:
+            one = pfleet._apply_one(p, single, results["pcm16"][p][0], 0)
+            got = read_audio(os.path.join(outdir, os.path.basename(p)))[0]
+            apply_err = max(apply_err, float(
+                np.abs(got - read_audio(one)[0]).max()))
+    print(f"fleet --apply vs _apply_one (6 files): max err {apply_err!r}")
+    check(apply_err < 1e-6, "batched apply vs per-file apply")
+    moved = sum(any(results["pcm16"][p][0].angles_units) for p in paths)
+    print(f"fleet: {moved} of {len(paths)} files with a nonzero angle; 6 "
+          f"equal to find_min_peak_angle")
+
+    # ---- the mesh on the card: one device, several mesh positions ----
+    mesh4 = file_mesh(devices=[dev] * 4)
+    mesh22 = grid_mesh(2, 2, devices=[dev] * 4)
+    want_t, want_r = sweep_peaks_aux(x4, geom)
+    with phase("sharded_sweep_4min_mono_4_shards", card, times):
+        p1, r1 = sharded_sweep_peaks(x4[0], geom, mesh4, axis="files")
+    with phase("sharded_sweep_4min_stereo_2x2", card, times):
+        p2, r2 = sharded_sweep_peaks(x4, geom, mesh22, axis="samples",
+                                     file_axis="files")
+    err = max(float((p1 - want_t[0]).abs().max()),
+              float((r1 - want_r[0]).abs().max()),
+              float((p2 - want_t).abs().max()),
+              float((r2 - want_r).abs().max()))
+    print(f"sharded_sweep_peaks (4 sample shards; 2 x 2) vs "
+          f"sweep_peaks_aux: max err {err!r}")
+    check(err < 2e-5, "sample-sharded sweep vs the unsharded sweep")
+    before = _build.launches["rotate_peak_sweep"]
+    with phase("angle_sharded_sweep_4min_stereo_3_shards", card, times):
+        pa, ra = angle_sharded_sweep_peaks(x4, geom,
+                                           file_mesh(3, devices=[dev] * 3))
+    general = _build.launches["rotate_peak_sweep"] - before
+    check(torch.equal(pa, want_t) and torch.equal(ra, want_r),
+          "angle-sharded sweep is not bit-equal to the unsharded sweep")
+    fleet_t, fleet_r = sweep_peaks_aux(fleet, geom)
+    with phase("batch_sweep_64x2x10s_4_shards", card, times):
+        bt, br = batch_sweep_peaks(fleet, geom, mesh4)
+    check(torch.equal(bt, fleet_t) and torch.equal(br, fleet_r),
+          "files-sharded sweep is not bit-equal to the unsharded sweep")
+    fleet_host = fleet.cpu().numpy()
+    with phase("batch_find_min_64x2x10s_24_files_per_call", card, times):
+        found = batch_find_min_peak_angles(fleet_host, geom, mesh4,
+                                           max_files_per_call=24)
+    want_found = select_min_peak_angles_batch(
+        fleet_t.cpu().numpy(), rot0=fleet_r.cpu().numpy())
+    check([r.angles_units for r in found]
+          == [r.angles_units for r in want_found],
+          "batch_find_min_peak_angles vs the unsharded search")
+    del fleet_host
+    want_y = rotate(stems, stem_degs, method="fir").cpu()
+    with phase("batch_rotate_64x60s_4_shards", card, times):
+        by = batch_rotate(stems, stem_degs, mesh4)
+    rot_err = float((by - want_y).abs().max())
+    del by, want_y
+    want_y = rotate(x4, [35.0, -120.0], method="fir", firlen=3072).cpu()
+    with phase("sharded_rotate_4min_stereo_2x2", card, times):
+        sy = sharded_rotate(x4, [35.0, -120.0], mesh22, firlen=3072,
+                            axis="samples", file_axis="files")
+    srot_err = float((sy - want_y).abs().max())
+    print(f"batch_rotate 64x60 s and sharded_rotate 2 x 4 min vs rotate_fir: "
+          f"max err {rot_err!r}, {srot_err!r}")
+    check(rot_err < 1e-5 and srot_err < 1e-5 and sy.device.type == "cpu",
+          "sharded rotations vs rotate_fir")
+    check(file_mesh().shape == {"files": torch.cuda.device_count()},
+          "file_mesh() does not span the visible cards")
+    try:
+        file_mesh(torch.cuda.device_count() + 1)
+    except ValueError:
+        pass
+    else:
+        check(False, "file_mesh asked for more cards than there are")
+    print("parallel: angle and files sharding bit-equal to the unsharded "
+          "sweep; chunked fleet search equal; file_mesh() spans "
+          f"{torch.cuda.device_count()} card(s) and raises beyond")
+    sync()
+    counts = dict(_build.launches)
+    counts["rotate_peak_sweep"] -= general
+    counts["rotate_peak_sweep_general"] = general
+    # after the counts are read: these launches compare and time, they are
+    # not the fleet's own
+    for label, first in (("loud short", 0), ("quiet short", 24),
+                         ("long", 40)):
+        staging_breakdown(paths[first : first + batch], geom, dev, card,
+                          label)
+    return counts
 
 
 def main() -> int:
@@ -656,7 +1055,16 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
     for name in ("hilbert_small", "rotate_peak_sweep"):
         check(launches_wide[name] > 0,
               f"kernel {name} was not launched by the wider surface")
-    launches = {k: launches[k] + launches_wide[k] for k in launches}
+    launches_cat = drive_catalogue(tmp, dev, card, times, x4, fleet, stems,
+                                   stem_degs, geom)
+    print(f"launches of the catalogue run: {json.dumps(launches_cat)}")
+    for name in ("hilbert_small", "rotate_peak_sweep", "rotate_small",
+                 "rotate_peak_sweep_general"):
+        check(launches_cat[name] > 0,
+              f"kernel {name} was not launched by the catalogue run")
+    general_launches = launches_cat.pop("rotate_peak_sweep_general")
+    launches = {k: launches[k] + launches_wide[k] + launches_cat[k]
+                for k in launches}
 
     # ---- outputs are right ----
     y_sub, _, _ = read_wav(out_sub)
@@ -800,9 +1208,7 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
                   f"sweep table not bit-equal ({shape_name}, {table_name})")
 
     sweep_equal(cs, "360 angles")
-    _build.reset_launches()
     sweep_equal(cs120, "120 angles")
-    general_launches = _build.launches["rotate_peak_sweep"]
     # NaN and inf samples: NaN propagates to the row's angles as in the
     # plain twin (and JAX); the other rows stay bit-equal
     with phase("sweep_nan_inf_check", card, times):
@@ -995,8 +1401,8 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
         ms_by_parsiz={str(p): dict(ms=k, plain_ms=pl, **fc_bound[p])
                       for p, (k, pl) in fc_ms.items()}))
 
-    # the two kernels no main path calls: counted here (the sweep's
-    # one-angle loop was counted above, in its checks)
+    # the two kernels no main path calls (``launches`` 0): this check's
+    # own launches go under ``check_launches``
     _build.reset_launches()
     mixf_err = float((fc.fused_rotate_fir(stems, turns, 3072)
                       - fc.fused_rotate_fir_plain(stems, turns, 3072)
@@ -1018,7 +1424,8 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
         name="fused_conv_mix", route="cuda",
         source="phaserotate_tpu_torch/csrc/fused_conv.cu",
         replaces="phaserotate_tpu/kernels/fused_conv.py:422",
-        launches=direct["fused_rotate_fir"], max_abs_err=mixf_err,
+        launches=launches["fused_rotate_fir"],
+        check_launches=direct["fused_rotate_fir"], max_abs_err=mixf_err,
         ms=cuda_ms(lambda: fc.fused_rotate_fir(stems, turns, 3072)),
         plain_ms=mixf_plain_ms,
         # the same function as stream_conv_mix, so the same bound
@@ -1029,7 +1436,8 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
         name="peak", route="cuda",
         source="phaserotate_tpu_torch/csrc/rotate_peak.cu",
         replaces="phaserotate_tpu/kernels/rotate_peak.py:56",
-        launches=direct["peak"], max_abs_err=0.0,
+        launches=launches["peak"], check_launches=direct["peak"],
+        max_abs_err=0.0,
         ms=cuda_ms(lambda: peak_kernel(flat_stems)),
         plain_ms=cuda_ms(lambda: peak_plain(flat_stems), 2),
         **bound(nbytes(flat_stems) + 4, 1.0 * flat_stems.numel()),

@@ -183,11 +183,13 @@ def _launch(frames: torch.Tensor, spectrum: torch.Tensor, parsiz: int,
     out = torch.empty((b, n_blocks * parsiz), dtype=torch.float32,
                       device=dev)
     lib = _build.lib()
-    err = lib.prt_fused_conv(
-        frames.data_ptr(), spec.data_ptr(), _twiddles(parsiz, dev).data_ptr(),
-        wp.data_ptr(), None if cs is None else cs.data_ptr(), tail.data_ptr(),
-        out.data_ptr(), b, n_blocks, parsiz, lat,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):  # the C launch goes to the current one
+        err = lib.prt_fused_conv(
+            frames.data_ptr(), spec.data_ptr(),
+            _twiddles(parsiz, dev).data_ptr(), wp.data_ptr(),
+            None if cs is None else cs.data_ptr(), tail.data_ptr(),
+            out.data_ptr(), b, n_blocks, parsiz, lat,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_conv")
     return out
 

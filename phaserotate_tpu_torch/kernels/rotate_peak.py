@@ -83,10 +83,11 @@ def rotate_peak_sweep_kernel(
     if rows == 0 or n == 0:
         return out.reshape(*lead, a)
     lib = _build.lib()
-    err = lib.prt_rotate_peak_sweep(
-        r0.data_ptr(), r1.data_ptr(), r0.stride(0), r1.stride(0),
-        cs.data_ptr(), out.data_ptr(), rows, n, a, tile_len,
-        torch.cuda.current_stream(b0.device).cuda_stream)
+    with torch.cuda.device(b0.device):  # the C launch goes to the current one
+        err = lib.prt_rotate_peak_sweep(
+            r0.data_ptr(), r1.data_ptr(), r0.stride(0), r1.stride(0),
+            cs.data_ptr(), out.data_ptr(), rows, n, a, tile_len,
+            torch.cuda.current_stream(b0.device).cuda_stream)
     _build.check(err, "rotate_peak_sweep")
     _build.count_launch("rotate_peak_sweep")
     return out.reshape(*lead, a)
@@ -115,9 +116,11 @@ def peak_kernel(x: torch.Tensor) -> torch.Tensor:
     out = torch.zeros((), dtype=torch.float32, device=x.device)
     if x.numel() == 0:
         return out
-    err = _build.lib().prt_peak(
-        x.data_ptr(), x.numel(), out.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    lib = _build.lib()
+    with torch.cuda.device(x.device):  # the C launch goes to the current one
+        err = lib.prt_peak(
+            x.data_ptr(), x.numel(), out.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "peak")
     _build.count_launch("peak")
     return out

@@ -119,11 +119,12 @@ def _launch(frames: torch.Tensor, fir_taps: int,
                        device=dev)
     out = torch.empty((b, n_frames, P), dtype=torch.float32, device=dev)
     lib = _build.lib()
-    err = lib.prt_stream_conv(
-        frames.data_ptr(), fir.data_ptr(), _twiddles(dev).data_ptr(),
-        None if angs is None else angs.data_ptr(), spec.data_ptr(),
-        out.data_ptr(), b, n_frames, fir.shape[0], d_frames,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):  # the C launch goes to the current one
+        err = lib.prt_stream_conv(
+            frames.data_ptr(), fir.data_ptr(), _twiddles(dev).data_ptr(),
+            None if angs is None else angs.data_ptr(), spec.data_ptr(),
+            out.data_ptr(), b, n_frames, fir.shape[0], d_frames,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "stream_conv")
     return out
 

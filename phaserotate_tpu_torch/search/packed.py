@@ -1,0 +1,360 @@
+"""Packed lossless wire transport for fleet ingest (torch).
+
+Counterpart of ``phaserotate_tpu/search/packed.py``, with the same wire
+format bit for bit: a :class:`PackedChunk` made by either package unpacks
+in the other.  The raw-PCM ingest (``sweep_peaks_aux_pcm16``) ships 16 bits
+per sample over the host-to-device link; this transport ships fewer,
+*losslessly*:
+
+  host side   fixed-order residual (iterated first difference, orders
+              0..3 — the same family as FLAC's fixed predictors) +
+              per-4096-sample-block minimal bit width, packed little-
+              endian into an int32 word stream (numpy, or the host
+              library's packer; the pack rides the fleet's decode thread,
+              under the device pass of the previous batch)
+  device side unpack with shifts and masks (a 2-word gather per sample),
+              reconstruct with ``torch.cumsum`` (the exact inverse of the
+              k-th difference is k prefix sums), dequantize to float32;
+              plain torch, as the JAX package's unpack is plain XLA
+
+Reconstruction is bit-exact: residuals of int16 data stay within int32
+at every order <= 3, and each prefix sum of a k-th difference is again
+a (k-1)-th difference of the original, so no intermediate overflows.
+The transport therefore feeds the sweep with values identical to the
+pcm16 path (tests/test_torch_packed.py asserts bitwise equality).
+
+Why not Rice/arithmetic coding: their decode is bit-serial (unary
+prefixes), which no batch of tensor operations expresses.
+Fixed-width-per-block costs ~1.5-2 bits/sample over the entropy of a
+Gaussian residual (the block max sits ~4 sigma up) — the price of a
+decode that is two gathers and a scan.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..core.device import resolve_device
+
+__all__ = ["PackedChunk", "pack_residual", "pack_adaptive",
+           "unpack_residual", "sweep_peaks_aux_packed",
+           "packed_bits_per_sample", "BLOCK", "MAX_ORDER"]
+
+# Samples per width block.  Must be a multiple of 32 so every block's
+# packed payload is word-aligned (4096 * w bits = 128*w words exactly),
+# which keeps the unpack's bit addressing to one add + shift.
+BLOCK = 4096
+MAX_ORDER = 3
+# Padded word counts snap to a geometric grid (5-bit mantissa): at most
+# 1/16 extra wire.  The JAX package pads so to bound its compiled
+# programs; the port compiles nothing but shares the format.
+_GRID_MANTISSA_BITS = 5
+# The unpack walks the streams in groups of about this many samples, so
+# its int32 temporaries stay at a few hundred MB whatever the batch.
+_UNPACK_GROUP_SAMPLES = 1 << 25
+
+
+def _grid_pad(need: int) -> int:
+    """Smallest m * 2^e >= need with m in [16, 32)."""
+    if need <= (1 << _GRID_MANTISSA_BITS):
+        return 1 << _GRID_MANTISSA_BITS
+    e = need.bit_length() - _GRID_MANTISSA_BITS
+    return -(-need >> e) << e
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedChunk:
+    """One chunk's packed transport, ready for the copy to the device.
+
+    words:  (W,) int32 — the bit stream (W padded to the word grid + 1
+            slack word so the unpack's straddle gather never reads
+            out of bounds).
+    widths: (S, NB) int32 — bits/sample of each stream's blocks.
+    woffs:  (S, NB) int32 — word offset of each block's payload.
+    order:  (S,) int32 — fixed-predictor order per stream (0..3).
+    n:      true samples per stream (NB*BLOCK >= n).
+    shape:  the original (..., n) leading shape, restored by consumers.
+    """
+
+    words: np.ndarray
+    widths: np.ndarray
+    woffs: np.ndarray
+    order: np.ndarray
+    n: int
+    shape: Tuple[int, ...]
+
+    @property
+    def wire_bytes(self) -> int:
+        return (self.words.nbytes + self.widths.nbytes
+                + self.woffs.nbytes + self.order.nbytes)
+
+
+def _signed_width(mx: np.ndarray, mn: np.ndarray) -> np.ndarray:
+    """Minimal signed bit width holding every value in [mn, mx]."""
+    # need 2^(w-1) - 1 >= mx  and  -2^(w-1) <= mn
+    hi = np.maximum(mx, 0).astype(np.int64)
+    lo = np.maximum(-mn.astype(np.int64) - 1, 0)
+    m = np.maximum(hi, lo)
+    # w-1 bits of magnitude: smallest w-1 with 2^(w-1) > m
+    return (np.where(m > 0,
+                     np.floor(np.log2(np.maximum(m, 1))).astype(np.int64)
+                     + 2,
+                     1)).astype(np.int32)
+
+
+def _pack_fixed_width(vals: np.ndarray, w: int) -> np.ndarray:
+    """(m, BLOCK) int32 residuals -> (m, BLOCK*w//32) int32 words.
+
+    Little-endian bit order: sample i occupies bits [i*w, (i+1)*w) of
+    the block's stream.  Vectorized over all m blocks: the inner loop
+    runs over the <= g sample slots of one word-group (g = lcm(w,32)/w
+    samples fill g*w/32 words exactly), each slot a full-array shift+or.
+    """
+    g = 32 // math.gcd(w, 32)          # samples per word-group
+    wpg = g * w // 32                  # words per group
+    m = vals.shape[0]
+    u = vals.astype(np.uint32) & np.uint32((1 << w) - 1)
+    u = u.reshape(m, BLOCK // g, g)
+    out = np.zeros((m, BLOCK // g, wpg), np.uint32)
+    for s in range(g):
+        bit = s * w
+        k, sh = bit >> 5, bit & 31
+        out[:, :, k] |= u[:, :, s] << np.uint32(sh)
+        if sh + w > 32:
+            out[:, :, k + 1] |= u[:, :, s] >> np.uint32(32 - sh)
+    return out.reshape(m, BLOCK * w // 32).view(np.int32)
+
+
+def pack_residual(x16: np.ndarray,
+                  out_words: np.ndarray | None = None,
+                  native: bool | None = None) -> PackedChunk:
+    """Pack int16 PCM (..., n) into the residual wire format.
+
+    ``out_words`` optionally supplies a preallocated int32 scratch
+    buffer (>= worst case: 17 bits/sample + grid padding) that a staging
+    ring can reuse.  The returned ``words`` is a VIEW into it — callers
+    must not rewrite the buffer while a device transfer of the view may
+    be in flight.
+
+    ``native`` selects the host library's packer (native/wire_pack.cc:
+    bit-identical, far faster than numpy, GIL released): None = use it
+    when built, True = require it, False = numpy reference path.
+    """
+    x16 = np.ascontiguousarray(x16, np.int16)
+    shape = x16.shape
+    n = shape[-1]
+    if native is not False:
+        pk = _pack_residual_native(x16.reshape(-1, n), out_words, n,
+                                   shape)
+        if pk is not None:
+            return pk
+        if native:
+            raise RuntimeError("native wire pack unavailable")
+    streams = x16.reshape(-1, n).astype(np.int32)
+    S = streams.shape[0]
+    nb = -(-n // BLOCK)
+    pad = nb * BLOCK - n
+    if pad:
+        streams = np.pad(streams, ((0, 0), (0, pad)))
+
+    # residuals r_k = k-th difference; per-stream order choice by
+    # total packed bits (FLAC's fixed-predictor selection, order cap
+    # 3).  Two passes over the diffs instead of materializing all four
+    # orders at once: the width tables are tiny, the residual arrays
+    # are ~BLOCK*nb*S*4 bytes each.
+    widths_k = []
+    r = streams
+    for k in range(MAX_ORDER + 1):
+        if k:
+            r = np.diff(r, axis=-1, prepend=0)
+        blocks = r.reshape(S, nb, BLOCK)
+        widths_k.append(
+            _signed_width(blocks.max(axis=-1), blocks.min(axis=-1)))
+    cost = np.stack([w.sum(axis=-1, dtype=np.int64) for w in widths_k])
+    order = np.argmin(cost, axis=0).astype(np.int32)     # (S,)
+    widths = np.take_along_axis(
+        np.stack(widths_k), order[None, :, None], axis=0)[0]  # (S, nb)
+    resid = np.empty_like(streams)
+    r = streams
+    for k in range(MAX_ORDER + 1):
+        if k:
+            r = np.diff(r, axis=-1, prepend=0)
+        rows = order == k
+        if rows.any():
+            resid[rows] = r[rows]
+
+    # word layout: blocks in (stream, block) order, each word-aligned
+    lens = (widths.astype(np.int64) * (BLOCK // 32)).reshape(-1)
+    woffs_flat = np.zeros(S * nb, np.int64)
+    np.cumsum(lens[:-1], out=woffs_flat[1:])
+    total = int(woffs_flat[-1] + lens[-1])
+    # +1 slack word (the unpack's straddle gather reads wi+1), then
+    # pad up to the grid
+    wpad = _grid_pad(total + 1)
+    if out_words is not None and out_words.size >= wpad:
+        words = out_words[:wpad]
+        words.fill(0)
+    else:
+        words = np.zeros(wpad, np.int32)
+    woffs = woffs_flat.astype(np.int32).reshape(S, nb)
+
+    rblocks = resid.reshape(S * nb, BLOCK)
+    wflat = widths.reshape(-1)
+    for w_val in np.unique(wflat):
+        idx = np.nonzero(wflat == w_val)[0]
+        packed = _pack_fixed_width(rblocks[idx], int(w_val))
+        pos = woffs_flat[idx, None] + np.arange(packed.shape[1])[None, :]
+        words[pos] = packed
+    return PackedChunk(words=words, widths=widths, woffs=woffs,
+                       order=order, n=n, shape=shape)
+
+
+def _pack_residual_native(streams16: np.ndarray,
+                          out_words: np.ndarray | None,
+                          n: int, shape) -> PackedChunk | None:
+    """wire_pack.cc path of :func:`pack_residual` (None if unbuilt)."""
+    from ..io.native import pack_residual_raw
+
+    S = streams16.shape[0]
+    nb = -(-n // BLOCK)
+    # worst case: the chosen order never beats order 0's <= 16 b/s
+    cap = _grid_pad(S * nb * (BLOCK // 2) + 1)
+    if out_words is not None and out_words.size >= cap:
+        words = out_words[:cap]
+    else:
+        words = np.empty(cap, np.int32)
+    widths = np.empty((S, nb), np.int32)
+    woffs = np.empty((S, nb), np.int32)
+    order = np.empty(S, np.int32)
+    total = pack_residual_raw(streams16, words, widths, woffs, order)
+    if total < 0:
+        return None
+    wpad = _grid_pad(total + 1)
+    words = words[:wpad]
+    words[total:] = 0  # slack word + grid padding
+    return PackedChunk(words=words, widths=widths, woffs=woffs,
+                       order=order, n=n, shape=shape)
+
+
+def packed_bits_per_sample(chunk: PackedChunk) -> float:
+    """Achieved wire bits per audio sample, metadata included."""
+    n_samples = int(np.prod(chunk.shape[:-1])) * chunk.n
+    return chunk.wire_bytes * 8.0 / max(1, n_samples)
+
+
+def pack_adaptive(x16: np.ndarray, scratch: np.ndarray,
+                  threshold: float = 0.9) -> PackedChunk | None:
+    """Adaptive transport decision: pack iff it beats pcm16 by margin.
+
+    Runs the native packer with ``scratch`` (int32) as both the word
+    budget and the output buffer: the budget is ``threshold`` x the
+    pcm16 wire size, so content whose residuals don't compress (fully
+    noise-dominated material) aborts the pack mid-way and ships the
+    plain 16-bit samples instead — the fleet never pays wire for a
+    transport that doesn't win.  The margin is there because a pack that
+    saves only a few percent of the bytes costs more in pack and unpack
+    time than the link gives back.  Returns None when pcm16 should be
+    shipped (budget exceeded, or no native packer — the numpy pack is
+    slower than the wire it would save).
+    """
+    from ..io.native import pack_residual_raw
+
+    shape = x16.shape
+    n = shape[-1]
+    streams = x16.reshape(-1, n)
+    S = streams.shape[0]
+    nb = -(-n // BLOCK)
+    budget = int(threshold * S * n * 16) // 32
+    cap = min(scratch.size, _grid_pad(budget + 1))
+    widths = np.empty((S, nb), np.int32)
+    woffs = np.empty((S, nb), np.int32)
+    order = np.empty(S, np.int32)
+    total = pack_residual_raw(streams, scratch[:cap], widths, woffs,
+                              order)
+    if total < 0 or total > budget:
+        return None
+    wpad = _grid_pad(total + 1)
+    if wpad > scratch.size:
+        return None
+    words = scratch[:wpad]
+    words[total:] = 0
+    return PackedChunk(words=words, widths=widths, woffs=woffs,
+                       order=order, n=n, shape=shape)
+
+
+def _unpack_group(words: torch.Tensor, widths: torch.Tensor,
+                  woffs: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """(g, NB) metadata of g streams -> their (g, NB*BLOCK) int32 PCM."""
+    g, nb = widths.shape
+    w = widths[:, :, None]                               # (g, NB, 1)
+    i_in = torch.arange(BLOCK, dtype=torch.int32, device=words.device)
+    bit = i_in * w                                       # (g, NB, BLOCK)
+    wi = woffs[:, :, None] + (bit >> 5)
+    sh = bit & 31
+    del bit
+    # torch has no logical right shift: shift arithmetically and clear
+    # the sh copies of the sign bit ((-2 << 31) wraps to 0 for sh == 0)
+    v = (words[wi] >> sh) & ~(-2 << (31 - sh))
+    # the straddling word's low bits; 1 slack word is guaranteed by the
+    # pack's grid pad, and for sh == 0 the two shifts clear it entirely
+    v |= (words[wi + 1] << (31 - sh)) << 1
+    del wi, sh
+    s = 32 - w
+    x = ((v << s) >> s).reshape(g, nb * BLOCK)           # sign extend
+    del v
+    out = x
+    for k in range(1, MAX_ORDER + 1):
+        x = torch.cumsum(x, dim=-1, dtype=torch.int32)
+        out = torch.where(order[:, None] == k, x, out)
+    return out
+
+
+def unpack_residual(words: torch.Tensor, widths: torch.Tensor,
+                    woffs: torch.Tensor, order: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """Inverse of :func:`pack_residual` on the tensors' device.
+
+    (W,) int32 words + (S, NB) metadata -> (S, n) float32 in [-1, 1).
+    Shifts/masks recover each block's fixed-width residuals (two-word
+    straddle gather), then k prefix sums invert the k-th difference.
+    All of it is int32 arithmetic, exact by the argument in the module
+    docstring, on a few streams at a time: beside the float32 result the
+    device holds temporaries of one group only.
+    """
+    for t in (words, widths, woffs, order):
+        if t.dtype != torch.int32 or t.device != words.device:
+            raise TypeError("words, widths, woffs and order must be int32 "
+                            "on one device")
+    S, nb = widths.shape
+    out = torch.empty((S, n), dtype=torch.float32, device=words.device)
+    step = max(1, _UNPACK_GROUP_SAMPLES // max(1, nb * BLOCK))
+    for a in range(0, S, step):
+        x = _unpack_group(words, widths[a : a + step], woffs[a : a + step],
+                          order[a : a + step])
+        out[a : a + step] = x[:, :n].to(torch.float32) * (1.0 / 32768.0)
+    return out
+
+
+def sweep_peaks_aux_packed(pk: PackedChunk, geom, chunk: int = 4096,
+                           device=None):
+    """sweep.sweep_peaks_aux over the packed wire format.
+
+    Value-identical to ``sweep_peaks_aux_pcm16`` of the same PCM (the
+    unpack reproduces the int16 values exactly, then dequantizes with
+    the same 1/32768).  The chunk's arrays go to ``device`` (default: the
+    CUDA device; ``"cpu"`` for the CPU) and are unpacked there.
+    """
+    from .sweep import _sweep_impl
+
+    dev = resolve_device(device)
+    x = unpack_residual(
+        torch.as_tensor(pk.words, device=dev),
+        torch.as_tensor(pk.widths, device=dev),
+        torch.as_tensor(pk.woffs, device=dev),
+        torch.as_tensor(pk.order, device=dev), pk.n)
+    return _sweep_impl(x.reshape(pk.shape), geom, chunk)

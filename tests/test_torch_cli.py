@@ -253,6 +253,9 @@ def test_port_runs_without_jax():
         "mods = [m.name for m in pkgutil.walk_packages(\n"
         "    pr.__path__, pr.__name__ + '.')]\n"
         "assert len(mods) > 40, mods\n"
+        "for m in ('fleet', 'parallel', 'parallel.batch', 'parallel.mesh',\n"
+        "          'search.packed'):\n"
+        "    assert pr.__name__ + '.' + m in mods, m\n"
         "for m in mods:\n"
         "    if not m.endswith('.__main__'):  # that one runs the CLI\n"
         "        importlib.import_module(m)\n"
@@ -265,6 +268,14 @@ def test_port_runs_without_jax():
         "d = tempfile.mkdtemp()\n"
         "pr.write_audio(os.path.join(d, 'a.flac'), x, 48000)\n"
         "assert pr.read_audio(os.path.join(d, 'a.flac'))[0].shape == x.shape\n"
+        "from phaserotate_tpu_torch import fleet, parallel\n"
+        "wav = os.path.join(d, 'a.wav')\n"
+        "pr.write_audio(wav, x, 48000)\n"
+        "got = fleet.analyze_paths([wav], transport='packed', device='cpu')\n"
+        "assert got[wav][0].angles_units == res.angles_units\n"
+        "mesh = parallel.file_mesh(3, devices=['cpu'] * 3)\n"
+        "t, r = parallel.angle_sharded_sweep_peaks(x, g, mesh)\n"
+        "assert t.shape == (2, 360) and r.shape == (2,)\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'jax' or m.startswith(('jax.', 'phaserotate_tpu.'))\n"
         "       or m == 'phaserotate_tpu']\n"

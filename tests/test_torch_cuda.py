@@ -331,3 +331,120 @@ def test_sweep_pcm16_bit_equal_on_card(dev, shape):
     assert torch.equal(table, w_table) and torch.equal(rot0, w_rot0)
     with pytest.raises(TypeError):
         sweep_peaks_aux_pcm16(floats, geom)
+
+
+def _pcm_tones(shape, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(shape[-1]) / 48000.0
+    x = 0.4 * np.sin(2 * np.pi * 300 * t) + 0.02 * rng.standard_normal(shape)
+    return np.clip(np.rint(32768 * x), -32768, 32767).astype(np.int16)
+
+
+@pytest.mark.parametrize("shape", [(3, 2, 50001), (2, 4096), (5, 31)])
+def test_unpack_on_card_equals_the_cpu_unpack(dev, shape, monkeypatch):
+    """The int32 shifts, masks and prefix sums give the same samples on
+    the card as on the CPU, whole and in groups of streams; the packed
+    sweep equals the pcm16 sweep bit for bit."""
+    from phaserotate_tpu_torch.core.sizes import OfflineGeometry
+    from phaserotate_tpu_torch.search import packed
+    from phaserotate_tpu_torch.search.sweep import sweep_peaks_aux_pcm16
+
+    x16 = _pcm_tones(shape, 21)
+    x16[0, ..., : shape[-1] // 2] = np.random.default_rng(2).integers(
+        -32768, 32768, shape[-1] // 2)  # an order-0 stretch at full scale
+    pk = packed.pack_residual(x16)
+    parts = [np.ascontiguousarray(a)
+             for a in (pk.words, pk.widths, pk.woffs, pk.order)]
+    want = packed.unpack_residual(*map(torch.from_numpy, parts), pk.n)
+    assert np.array_equal(want.numpy().reshape(shape),
+                          x16.astype(np.float32) / 32768.0)
+    for group in (1 << 25, packed.BLOCK):
+        monkeypatch.setattr(packed, "_UNPACK_GROUP_SAMPLES", group)
+        got = packed.unpack_residual(
+            *(torch.from_numpy(a).to(dev) for a in parts), pk.n)
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    geom = OfflineGeometry(1024)
+    t_pk, r_pk = packed.sweep_peaks_aux_packed(pk, geom)
+    t_16, r_16 = sweep_peaks_aux_pcm16(x16, geom)
+    assert t_pk.device.type == "cuda"
+    assert torch.equal(t_pk, t_16) and torch.equal(r_pk, r_16)
+
+
+def test_mesh_of_the_card_four_times_over(dev):
+    """Sample and angle sharding over a mesh that names the one card four
+    (three) times: the halo copies, the masked first shard, the maximum and
+    the angle slices run with the real kernels."""
+    from phaserotate_tpu_torch.core.sizes import OfflineGeometry
+    from phaserotate_tpu_torch.parallel import (
+        angle_sharded_sweep_peaks, batch_rotate, batch_sweep_peaks,
+        file_mesh, grid_mesh, sharded_rotate, sharded_sweep_peaks)
+    from phaserotate_tpu_torch.search import sweep_peaks_aux
+
+    geom = OfflineGeometry(8192)
+    rng = np.random.default_rng(8)
+    x = (0.3 * rng.standard_normal((2, 30 * 8192 - 555))).astype(np.float32)
+    want, want_r = sweep_peaks_aux(x, geom)
+    mesh4 = file_mesh(4, devices=[dev] * 4)
+    _build.reset_launches()
+    p1, r1 = sharded_sweep_peaks(x[0], geom, mesh4, axis="files")
+    assert _build.launches["rotate_peak_sweep"] == 4
+    assert p1.device.type == "cuda"
+    assert (p1 - want[0]).abs().max().item() < 2e-5
+    assert abs(float(r1) - float(want_r[0])) < 2e-5
+    p2, r2 = sharded_sweep_peaks(x, geom, grid_mesh(2, 2, devices=[dev] * 4),
+                                 axis="samples", file_axis="files")
+    assert (p2 - want).abs().max().item() < 2e-5
+    assert (r2 - want_r).abs().max().item() < 2e-5
+    for n_dev in (3, 8):
+        t, r = angle_sharded_sweep_peaks(
+            x, geom, file_mesh(n_dev, devices=[dev] * n_dev))
+        assert torch.equal(t, want) and torch.equal(r, want_r)
+    x8 = np.stack([x, x[::-1]] * 4)  # (8 files, 2, n)
+    t8, r8 = batch_sweep_peaks(x8, geom, mesh4)
+    w8, wr8 = sweep_peaks_aux(x8, geom)
+    assert torch.equal(t8, w8) and torch.equal(r8, wr8)
+    degs = np.linspace(-150, 150, 8).astype(np.float32)
+    y = batch_rotate(x8[:, 0], degs, mesh4)
+    assert y.device.type == "cpu"
+    assert (y - rotate_fir(x8[:, 0], degs).cpu()).abs().max() < 1e-5
+    ys = sharded_rotate(x[0], 35.0, mesh4, firlen=3072, axis="files")
+    assert (ys - rotate_fir(x[0], 35.0, firlen=3072).cpu()).abs().max() < 1e-5
+    # without devices: the visible cards, and never more than there are
+    n_cards = torch.cuda.device_count()
+    assert file_mesh().shape == {"files": n_cards}
+    with pytest.raises(ValueError, match="device"):
+        file_mesh(n_cards + 1)
+
+
+def test_fleet_transports_equal_on_card(dev, tmp_path):
+    """pcm16, packed and auto give the same results on the card, equal to
+    the per-file search; the batched apply equals the per-file apply."""
+    from phaserotate_tpu_torch import fleet
+    from phaserotate_tpu_torch.io import read_audio
+
+    paths = []
+    for i in range(5):
+        p = str(tmp_path / f"f{i}.wav")
+        x = _pcm_tones((2, 100000 + 7000 * i), 30 + i) / 32768.0
+        write_wav(p, x.astype(np.float32), 48000, bits=16,
+                  float_format=False)
+        paths.append(p)
+    _build.reset_launches()
+    base = fleet.analyze_paths(paths, transport="pcm16", batch=2)
+    assert _build.launches["rotate_peak_sweep"] == 3
+    for transport in ("packed", "auto"):
+        res = fleet.analyze_paths(paths, transport=transport, batch=2)
+        for p in paths:
+            assert res[p][0].angles_units == base[p][0].angles_units
+            assert np.array_equal(res[p][0].peak_min, base[p][0].peak_min)
+    for p in paths:
+        audio, rate, _ = read_audio(p)
+        assert pr.find_min_peak_angle(audio, rate=rate).angles_units \
+            == base[p][0].angles_units
+    written = fleet.apply_paths(paths, base, str(tmp_path / "out"), batch=2)
+    single = str(tmp_path / "single")
+    os.makedirs(single)
+    for p in paths:
+        one = fleet._apply_one(p, single, base[p][0], 0)
+        assert np.abs(read_audio(written[p])[0]
+                      - read_audio(one)[0]).max() < 1e-6

@@ -1,0 +1,302 @@
+"""The port's fleet front end (fleet.py) against the JAX package's: the
+same results, checkpoint files and printed lines on the same files.
+
+The port runs on ``device="cpu"`` here.  Angles must be equal; peaks agree
+within 2e-5 (two FFT libraries, float32 roundoff of the convolution); the
+three transports are exactly equal among themselves (the unpack is
+bit-exact); applied files agree within one 16-bit step where a rounding
+boundary is crossed.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from phaserotate_tpu import fleet as j_fleet
+from phaserotate_tpu_torch import fleet as p_fleet
+from phaserotate_tpu_torch.core.sizes import offline_geometry
+from phaserotate_tpu_torch.io import (read_audio, write_flac, write_ogg,
+                                      write_wav)
+from phaserotate_tpu_torch.search import find_min_peak_angle
+from phaserotate_tpu_torch.search.sweep import apply_angles
+
+torch.set_num_threads(1)
+
+RATE = 48000
+
+
+def analyze_paths(paths, **kw):
+    return p_fleet.analyze_paths(paths, device="cpu", **kw)
+
+
+def _mk(tmp_path, n_files=5, n=20000, seed=41):
+    rng = np.random.default_rng(seed)
+    paths = []
+    t = np.arange(n) / RATE
+    for i in range(n_files):
+        x = (0.4 * np.sin(2 * np.pi * (100 + 37 * i) * t)
+             + 0.2 * np.sin(2 * np.pi * (210 + 11 * i) * t + 0.4)
+             + 0.01 * rng.standard_normal(n)).astype(np.float32)
+        p = str(tmp_path / f"f{i}.wav")
+        write_wav(p, x, RATE, bits=16, float_format=False)
+        paths.append(p)
+    return paths
+
+
+def _mk_stereo(tmp_path, n_files=3, n=30000, seed=7):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / RATE
+    paths = []
+    for i in range(n_files):
+        x = np.stack([
+            0.5 * np.sin(2 * np.pi * (120 + 31 * i) * t)
+            + 0.01 * rng.standard_normal(n),
+            0.4 * np.sin(2 * np.pi * (260 + 17 * i) * t + 0.7)
+            + 0.01 * rng.standard_normal(n),
+        ]).astype(np.float32)
+        p = str(tmp_path / f"s{i}.wav")
+        write_wav(p, x, RATE, bits=16, float_format=False)
+        paths.append(p)
+    return paths
+
+
+def _assert_same_results(got, want, paths, exact):
+    for p in paths:
+        (g, g_rate), (w, w_rate) = got[p], want[p]
+        assert g_rate == w_rate
+        assert g.angles_units == w.angles_units, p
+        assert list(g.found) == list(w.found), p
+        if exact:
+            np.testing.assert_array_equal(g.peak_min, w.peak_min)
+            np.testing.assert_array_equal(g.peak_zero, w.peak_zero)
+        else:
+            np.testing.assert_allclose(g.peak_min, w.peak_min, atol=2e-5,
+                                       rtol=0)
+            np.testing.assert_allclose(g.peak_zero, w.peak_zero, atol=2e-5,
+                                       rtol=0)
+
+
+def test_fleet_matches_single_file_search_and_jax(tmp_path):
+    """Batched results == per-file find_min_peak_angle, the zero padding
+    to the bucket length included, and == the JAX fleet's."""
+    paths = _mk(tmp_path)
+    res = analyze_paths(paths, batch=3)  # 2 device batches
+    for p in paths:
+        audio, rate, _ = read_audio(p)
+        want = find_min_peak_angle(audio, rate=rate, device="cpu")
+        got, g_rate = res[p]
+        assert g_rate == rate
+        assert got.angles_units == want.angles_units, p
+        np.testing.assert_array_equal(got.peak_min, want.peak_min)
+    _assert_same_results(res, j_fleet.analyze_paths(paths, batch=3), paths,
+                         exact=False)
+
+
+@pytest.mark.parametrize("stereo", [False, True])
+@pytest.mark.parametrize("transport", ["packed", "auto"])
+def test_fleet_transport_parity(tmp_path, transport, stereo):
+    """pcm16 / packed / auto give identical selections and peaks: the
+    device sees the same floats either way.  Stereo batches stage as
+    (files, 2, n): the packed stream axis covers files x channels."""
+    paths = _mk_stereo(tmp_path) if stereo else _mk(tmp_path, n_files=4)
+    base = analyze_paths(paths, transport="pcm16")
+    _assert_same_results(analyze_paths(paths, transport=transport), base,
+                         paths, exact=True)
+
+
+def test_fleet_auto_ships_noise_as_pcm16(tmp_path, monkeypatch):
+    """auto packs what compresses and ships the rest as int16; both kinds
+    of batch in one fleet, the results equal to pcm16's."""
+    from phaserotate_tpu_torch.io import native
+    from phaserotate_tpu_torch.search import packed, sweep
+
+    if not native.available():
+        pytest.skip("native host library unavailable: auto never packs")
+    rng = np.random.default_rng(3)
+    tone = _mk(tmp_path, n_files=2, n=20000)           # bucket of 16 blocks
+    noisy = []
+    for i in range(2):                   # bucket of 32 blocks, nearly full
+        p = str(tmp_path / f"noise{i}.wav")
+        write_wav(p, rng.uniform(-0.9, 0.9, 65000).astype(np.float32), RATE,
+                  bits=16, float_format=False)
+        noisy.append(p)
+    calls = []
+    for mod, name in ((packed, "sweep_peaks_aux_packed"),
+                      (sweep, "sweep_peaks_aux_pcm16")):
+        orig = getattr(mod, name)
+        monkeypatch.setattr(
+            mod, name, lambda *a, _o=orig, _n=name, **k: (
+                calls.append(_n), _o(*a, **k))[1])
+    res = analyze_paths(tone + noisy, transport="auto", blksiz=2048)
+    assert sorted(calls) == ["sweep_peaks_aux_packed",
+                             "sweep_peaks_aux_pcm16"]
+    _assert_same_results(res, analyze_paths(tone + noisy, blksiz=2048,
+                                            transport="pcm16"),
+                         tone + noisy, exact=True)
+
+
+def test_fleet_mixed_lengths_and_formats(tmp_path):
+    """Different lengths land in different buckets; FLAC rides the same
+    int16 ingest; results match the per-file search and the JAX fleet."""
+    t1 = np.arange(15000) / RATE
+    t2 = np.arange(50000) / RATE
+    a = (0.5 * np.sin(2 * np.pi * 150 * t1)).astype(np.float32)
+    b = (0.4 * np.sin(2 * np.pi * 440 * t2)
+         + 0.2 * np.sin(2 * np.pi * 97 * t2)).astype(np.float32)
+    pa = str(tmp_path / "a.wav")
+    pb = str(tmp_path / "b.flac")
+    write_wav(pa, a, RATE, bits=16, float_format=False)
+    write_flac(pb, b, RATE, bits=16)
+    res = analyze_paths([pa, pb])
+    for p in (pa, pb):
+        audio, r, _ = read_audio(p)
+        want = find_min_peak_angle(audio, rate=r, device="cpu")
+        assert res[p][0].angles_units == want.angles_units, p
+    _assert_same_results(res, j_fleet.analyze_paths([pa, pb]), [pa, pb],
+                         exact=False)
+
+
+def test_fleet_batched_apply_matches_per_file(tmp_path):
+    """apply_paths (one device pass per batch, files zero-padded to the
+    bucket length) writes the audio a per-file run produces: mixed
+    lengths and channel counts in one fleet."""
+    paths = _mk(tmp_path, n_files=3)
+    paths += _mk_stereo(tmp_path, n_files=1, n=33333)
+    results = analyze_paths(paths)
+    written = p_fleet.apply_paths(paths, results, str(tmp_path / "out"),
+                                  batch=2, device="cpu")
+    assert set(written) == set(paths)
+    single_dir = str(tmp_path / "single")
+    os.makedirs(single_dir)
+    for p in paths:
+        audio, rate, _ = read_audio(p)
+        want = apply_angles(
+            np.atleast_2d(audio), np.asarray(results[p][0].angles_units),
+            offline_geometry(rate, 0), device="cpu").numpy()
+        got, g_rate, _ = read_audio(written[p])
+        assert g_rate == rate
+        np.testing.assert_allclose(got, want, atol=1e-6)
+        # _apply_one, the per-file writer, gives the same file
+        one = p_fleet._apply_one(p, single_dir, results[p][0], 0,
+                                 device="cpu")
+        np.testing.assert_allclose(read_audio(one)[0], got, atol=1e-6)
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_fleet_checkpoint_resume_across_packages(tmp_path, writer):
+    """A checkpoint written by either fleet serves every file of the
+    other's rerun from the stored sweeps."""
+    paths = _mk(tmp_path, n_files=4)
+    ck = str(tmp_path / "sweeps.npz")
+    if writer == "jax":
+        first = j_fleet.analyze_paths(paths, checkpoint=ck)
+        rerun = analyze_paths
+    else:
+        first = analyze_paths(paths, checkpoint=ck)
+        rerun = j_fleet.analyze_paths
+    seen = []
+    second = rerun(paths, checkpoint=ck,
+                   progress=lambda p, res, cached: seen.append(cached))
+    assert len(seen) == 4 and all(seen)
+    _assert_same_results(second, first, paths, exact=True)
+    # and the port's own rerun, with another selection, touches no device
+    seen.clear()
+    third = analyze_paths(paths, checkpoint=ck, stride=12,
+                          progress=lambda p, res, cached: seen.append(cached))
+    assert all(seen) and set(third) == set(paths)
+
+
+def test_fleet_checkpoint_files_hold_the_same_tables(tmp_path):
+    paths = _mk(tmp_path, n_files=3)
+    ck_p, ck_j = str(tmp_path / "p.npz"), str(tmp_path / "j.npz")
+    analyze_paths(paths, checkpoint=ck_p)
+    j_fleet.analyze_paths(paths, checkpoint=ck_j)
+    with np.load(ck_p) as zp, np.load(ck_j) as zj:
+        assert sorted(zp.files) == sorted(zj.files)
+        for k in zp.files:
+            assert zp[k].shape == zj[k].shape and zp[k].dtype == zj[k].dtype
+            np.testing.assert_allclose(zp[k], zj[k], atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("extra", [[], ["-l", "-s", "12"],
+                                   ["--transport", "packed", "--batch", "2"]])
+def test_fleet_cli_prints_the_jax_clis_lines(tmp_path, capsys, extra):
+    paths = _mk(tmp_path, n_files=3) + _mk_stereo(tmp_path, n_files=1)
+    assert p_fleet.main(paths + extra, device="cpu") == 0
+    got = capsys.readouterr()
+    assert j_fleet.main(paths + extra) == 0
+    want = capsys.readouterr()
+    assert got.out == want.out and got.out.count("ch 1:") == 4
+    assert got.out.count("ch 2:") == 1 and got.err == want.err == ""
+
+
+def test_fleet_cli_checkpoint_and_apply(tmp_path, capsys):
+    paths = _mk(tmp_path, n_files=3)
+    ck = str(tmp_path / "ck.npz")
+    outdir, j_outdir = str(tmp_path / "out"), str(tmp_path / "j_out")
+    assert p_fleet.main(paths + ["--checkpoint", ck], device="cpu") == 0
+    first = capsys.readouterr().out
+    assert "(cached sweep)" not in first
+    argv = paths + ["--checkpoint", ck, "--apply", "--outdir"]
+    assert p_fleet.main(argv + [outdir], device="cpu") == 0
+    second = capsys.readouterr()
+    assert second.out.count("(cached sweep)") == 3
+    assert second.out.replace("  (cached sweep)", "") == first
+    assert j_fleet.main(argv + [j_outdir]) == 0
+    want = capsys.readouterr()
+    assert second.out == want.out
+    assert second.err == want.err.replace(j_outdir, outdir)
+    assert second.err.count("wrote ") == 3
+    for p in paths:
+        name = os.path.basename(p)
+        y, rate, _ = read_audio(os.path.join(outdir, name))
+        src, _, _ = read_audio(p)
+        assert y.shape == src.shape and rate == RATE
+        jy, _, _ = read_audio(os.path.join(j_outdir, name))
+        np.testing.assert_allclose(y, jy, atol=1.0 / 32768 + 1e-7)
+    with pytest.raises(SystemExit):
+        p_fleet.main(paths + ["--apply"], device="cpu")
+    capsys.readouterr()
+
+
+def test_fleet_lossy_input(tmp_path):
+    """A lossy source (Vorbis) rides the quantizing ingest fallback."""
+    t = np.arange(24000) / RATE
+    x = (0.5 * np.sin(2 * np.pi * 150 * t)
+         + 0.2 * np.sin(2 * np.pi * 340 * t)).astype(np.float32)
+    p = str(tmp_path / "l.ogg")
+    write_ogg(p, x[None], RATE, quality=0.5)
+    res = analyze_paths([p])
+    r, g_rate = res[p]
+    assert g_rate == RATE and len(r.angles_deg) == 1
+    audio, _, _ = read_audio(p)
+    q = np.clip(np.rint(audio * 32768.0), -32768, 32767) / 32768.0
+    want = find_min_peak_angle(q.astype(np.float32), rate=RATE,
+                               device="cpu")
+    assert r.angles_units == want.angles_units
+    _assert_same_results(res, j_fleet.analyze_paths([p]), [p], exact=False)
+
+
+def test_fleet_rejects_an_unknown_transport(tmp_path):
+    with pytest.raises(ValueError, match="transport"):
+        analyze_paths(_mk(tmp_path, n_files=1), transport="zip")
+
+
+def test_fleet_needs_a_device(tmp_path, capsys):
+    """Nothing runs on the CPU unasked: the functions raise, the CLI
+    prints one error line and exits 1."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    paths = _mk(tmp_path, n_files=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        p_fleet.analyze_paths(paths)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        p_fleet.apply_paths(paths, {}, str(tmp_path / "out"))
+    assert not os.path.exists(str(tmp_path / "out"))
+    capsys.readouterr()
+    assert p_fleet.main(paths) == 1
+    out = capsys.readouterr()
+    assert out.out == "" and len(out.err.strip().splitlines()) == 1
+    assert out.err.startswith("Error: ")

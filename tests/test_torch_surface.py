@@ -1,7 +1,8 @@
 """The port's public surface against the JAX package's.
 
 Every public name of the JAX top level, ``core``, ``ops``, ``search``
-(with ``search.sweep``), ``io`` and ``utils`` exists in the port, apart
+(with ``search.sweep`` and ``search.packed``), ``parallel`` (with its two
+modules), ``fleet``, ``io`` and ``utils`` exists in the port, apart
 from the ones listed below with the reason each stays behind; the small
 functions that closed the gaps agree with their JAX twins on seeded input;
 the int16 ingest equals the float path; and the profiling hooks work on
@@ -47,7 +48,9 @@ LEFT_BEHIND = {
                       "the TPU runtime; the port ships int16 as it is",
     },
 }
-SURFACES = ["", "core", "ops", "search", "search.sweep", "io", "utils"]
+SURFACES = ["", "core", "ops", "search", "search.sweep", "search.packed",
+            "parallel", "parallel.mesh", "parallel.batch", "fleet", "io",
+            "utils"]
 
 
 def _pair(sub):
