@@ -46,8 +46,19 @@ then, on the first CUDA device:
    the unsharded sweep, angle sharding on three shards (the sweep kernel's
    one-angle loop) and files sharding of the 64 x 2 x 10 s search
    bit-equal to it, ``batch_rotate`` and ``sharded_rotate`` within 1e-5 of
-   ``rotate_fir``; the counts of the three runs are added up in the
-   ``kernels`` line;
+   ``rotate_fir``;
+   then, with the counters at 0 a fourth time, the serving path: the
+   daemon (``bridge.serve(sock, batch_sessions=8, pipeline=-1,
+   ui_port=0)``) in a thread of this process on the card, eight
+   ``native/prt_bridge`` stereo sessions (built with ``make -C native
+   prt_bridge``) at 1024-sample blocks in its broker and a Python
+   ``BridgeClient`` (the ninth, served on its own; it moves its angle and
+   sends the UI's CTRL events), the 4-minute file analysed over the socket
+   by ``BridgeClient.analyze`` and ``prt_bridge -A`` while they stream,
+   the web UI's ``/state``, then two unbatched sessions on a second
+   daemon; every output against ``StreamingRotator(pipeline_depth=D)`` on
+   the card within 1e-5, the analyses equal to the in-process search; the
+   counts of the four runs are added up in the ``kernels`` line;
 3. checks the outputs: against the plain PyTorch path (the kernels' plain
    twins) on the card, against the repository's numpy CLI simulator on a
    small input, the streaming rotator against the bulk engine, block-size
@@ -896,6 +907,360 @@ def drive_catalogue(tmp, dev, card, times, x4, fleet, stems, stem_degs,
     return counts
 
 
+SERVE_SESSIONS = 8   # batched prt_bridge sessions on the first daemon
+SERVE_SECONDS = 5    # of stereo audio each
+SERVE_BLOCK = 1024   # host block of every client
+SOLO_SECONDS = 3     # the Python client's and the unbatched sessions'
+
+
+class ServeLog:
+    """What the daemon's sessions did, recorded by wrapping
+    ``bridge._Session`` and ``measure_dispatch_rtt_stats`` for this run
+    (the daemon keeps no such record): every session made, the host time
+    of each PROC it served, and the round trips the daemon measured."""
+
+    def __init__(self, bridge):
+        import threading
+
+        self.sessions: list = []
+        self.calls: dict = {}
+        self.rtts: list = []
+        self.cv = threading.Condition()
+        self._bridge = bridge
+        self._saved = (bridge._Session.__init__, bridge._Session.process,
+                       bridge.measure_dispatch_rtt_stats)
+        init, process, rtt = self._saved
+        log = self
+
+        def logged_init(s, *a, **kw):
+            init(s, *a, **kw)
+            with log.cv:
+                log.calls[id(s)] = []
+                log.sessions.append(s)
+                log.cv.notify_all()
+
+        def logged_process(s, n, angles, samples):
+            t0 = time.perf_counter()
+            out = process(s, n, angles, samples)
+            log.calls[id(s)].append((t0, time.perf_counter(), n))
+            return out
+
+        def logged_rtt(*a, **kw):
+            log.rtts.append(rtt(*a, **kw))
+            return log.rtts[-1]
+
+        bridge._Session.__init__ = logged_init
+        bridge._Session.process = logged_process
+        bridge.measure_dispatch_rtt_stats = logged_rtt
+
+    def restore(self):
+        b = self._bridge
+        (b._Session.__init__, b._Session.process,
+         b.measure_dispatch_rtt_stats) = self._saved
+
+    def wait_sessions(self, n: int, timeout: float = 300.0):
+        with self.cv:
+            check(self.cv.wait_for(lambda: len(self.sessions) >= n, timeout),
+                  f"only {len(self.sessions)} of {n} sessions connected")
+
+    def stats(self, session) -> dict:
+        calls = self.calls[id(session)]
+        ms = [1e3 * (b - a) for a, b, _ in calls]
+        wall = calls[-1][1] - calls[0][0]
+        return dict(blocks=len(calls),
+                    xrt=sum(n for *_, n in calls) / RATE / wall,
+                    p50=float(np.percentile(ms, 50)),
+                    p99=float(np.percentile(ms, 99)))
+
+
+def start_daemon(bridge, sock: str, **kw) -> None:
+    """``bridge.serve(sock, **kw)`` in a daemon thread of this process (its
+    launches count here); returns once it listens."""
+    import select
+    import threading
+
+    r, w = os.pipe()
+    failed: list = []
+
+    def run():
+        try:
+            bridge.serve(sock, ready_fd=w, **kw)
+        except BaseException as e:
+            failed.append(e)
+            os.write(w, b"E")  # the waiting main thread learns at once
+            raise
+
+    threading.Thread(target=run, daemon=True).start()
+    ready, _, _ = select.select([r], [], [], 300)
+    check(bool(ready) and os.read(r, 1) == b"R",
+          f"daemon {kw} did not start: {failed}")
+    os.close(r)
+
+
+def prt_bridge_run(exe, sock, degs, src, dst):
+    """A ``prt_bridge`` streaming session as a subprocess: (Popen, t0)."""
+    cmd = [exe, "-s", sock, "-b", str(SERVE_BLOCK), "-a",
+           ",".join(f"{d:.2f}" for d in degs), src, dst]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True), \
+        time.perf_counter()
+
+
+def prt_bridge_done(proc, t0, label):
+    """Wait for a ``prt_bridge`` session; returns (wall s, its latency)."""
+    _, err = proc.communicate(timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"prt_bridge {label} exited "
+          f"{proc.returncode}:\n{err[-2000:]}")
+    m = re.search(r"latency (\d+) frames", err)
+    check(m is not None, f"prt_bridge {label} printed no latency:\n{err}")
+    return wall, int(m.group(1))
+
+
+def solo_streams(dev, inputs, degs_per_block, depth):
+    """The same sessions through one StreamingRotator(pipeline_depth=depth)
+    on the card, their channels side by side (the engine's channels are
+    independent), fed the same host blocks with the latency's zeros after:
+    returns each session's latency-compensated (2, n) output."""
+    from phaserotate_tpu_torch.stream import StreamingRotator
+
+    x = np.concatenate(inputs)  # (2 * sessions, n)
+    n = x.shape[1]
+    rot = StreamingRotator(rate=RATE, channels=x.shape[0],
+                           pipeline_depth=depth, device=dev)
+    lat = rot.latency
+    x = np.concatenate([x, np.zeros((x.shape[0], lat), np.float32)], axis=1)
+    outs = [rot.process(x[:, i : i + SERVE_BLOCK], degs_per_block(i))
+            for i in range(0, x.shape[1], SERVE_BLOCK)]
+    y = np.concatenate(outs, axis=1)[:, lat : lat + n]
+    return [y[2 * s : 2 * s + 2] for s in range(len(inputs))]
+
+
+def drive_serving(tmp, dev, card, times, audio, src) -> dict:
+    """The fourth counted run: the daemon on the card serving the native
+    clients and a Python client, with analysis over the socket while it
+    streams.  Returns this run's launch counts."""
+    import threading
+    import urllib.request
+
+    from phaserotate_tpu_torch import bridge
+    from phaserotate_tpu_torch.core.sizes import stream_geometry_for_rate
+    from phaserotate_tpu_torch.gui import web
+    from phaserotate_tpu_torch.io import read_wav, write_wav
+    from phaserotate_tpu_torch.kernels import _build
+    from phaserotate_tpu_torch.search import find_min_peak_angle
+
+    sgeom = stream_geometry_for_rate(RATE)
+    t0 = time.perf_counter()
+    make = subprocess.run(["make", "-C", os.path.join(REPO, "native"),
+                           "prt_bridge"], capture_output=True, text=True,
+                          timeout=300)
+    check(make.returncode == 0, f"make -C native prt_bridge exited "
+          f"{make.returncode}:\n{make.stdout[-2000:]}{make.stderr[-3000:]}")
+    exe = os.path.join(REPO, "native", "prt_bridge")
+    times["build_prt_bridge"] = time.perf_counter() - t0
+    print(f"phase build_prt_bridge: {times['build_prt_bridge']:.6f} s "
+          f"[{card}]")
+
+    rng = np.random.default_rng(SEED + 10)
+    n_srv, n_solo = SERVE_SECONDS * RATE, SOLO_SECONDS * RATE
+    inputs = [music_like(rng, 2, n_srv) for _ in range(SERVE_SESSIONS)]
+    # as prt_bridge reads them: "%.2f" text, then float
+    angles = [np.array([float(f"{a:.2f}") for a in
+                        rng.uniform(-180.0, 180.0, 2)])
+              for _ in range(SERVE_SESSIONS)]
+    srcs, dsts = [], []
+    for s, x in enumerate(inputs):
+        srcs.append(os.path.join(tmp, f"serve_in{s}.wav"))
+        dsts.append(os.path.join(tmp, f"serve_out{s}.wav"))
+        write_wav(srcs[-1], x, RATE)
+    py_in = music_like(rng, 2, n_solo)
+    py_angles = [np.round(rng.uniform(-180.0, 180.0, 2), 2)
+                 for _ in range(2)]  # first half, second half
+
+    log = ServeLog(bridge)
+    webuis: list = []
+    web_start = web.WebUI.start
+
+    def logged_start(ui):
+        webuis.append(ui)
+        return web_start(ui)
+
+    web.WebUI.start = logged_start
+    sync()
+    _build.reset_launches()
+    try:
+        # ---- 1. the batched daemon, on the card, no device argument ----
+        sock = os.path.join(tmp, "serve.sock")
+        start_daemon(bridge, sock, batch_sessions=SERVE_SESSIONS,
+                     pipeline=-1, ui_port=0)
+        (rtt_med, rtt_p99), = log.rtts
+        auto = bridge.auto_pipeline_depth(rtt_med, RATE, sgeom.parsiz,
+                                          rtt_p99_s=rtt_p99)
+        print(f"daemon dispatch round trip: median {1e3 * rtt_med:.6f} ms, "
+              f"p99 {1e3 * rtt_p99:.6f} ms -> auto pipeline depth {auto} "
+              f"[{card}]")
+        # ---- 2. eight batched prt_bridge sessions, then a Python one ----
+        t_serve = time.perf_counter()
+        runs = [prt_bridge_run(exe, sock, angles[s], srcs[s], dsts[s])
+                for s in range(SERVE_SESSIONS)]
+        log.wait_sessions(SERVE_SESSIONS)
+        cl = bridge.BridgeClient(sock, RATE, 2)
+        cl.sock.settimeout(300)
+        depth = (cl.latency - sgeom.latency) // sgeom.parsiz
+        check(depth == auto, f"session depth {depth}, auto {auto}")
+        py_x = np.concatenate(
+            [py_in, np.zeros((2, cl.latency), np.float32)], axis=1)
+        py_out, py_ms, analyses = [], [], {}
+        t_py = time.perf_counter()
+        for b, i in enumerate(range(0, py_x.shape[1], SERVE_BLOCK)):
+            if b == 0:
+                cl.ui_on()
+            if b == 5:
+                cl.set_state(1.25, False)
+                cl.ui_on()
+            if b == 50:
+                cl.reset_peaks()
+            t1 = time.perf_counter()
+            py_out.append(cl.process(py_x[:, i : i + SERVE_BLOCK],
+                                     py_angles[i >= n_solo // 2]))
+            py_ms.append(1e3 * (time.perf_counter() - t1))
+            if b == 20:
+                # ---- 5. the web UI lists every live session ----
+                url = webuis[0].url + "state"
+                with urllib.request.urlopen(url, timeout=60) as r:
+                    live = json.loads(r.read())["sessions"]
+                check(len(live) == SERVE_SESSIONS + 1,
+                      f"web UI lists {len(live)} sessions")
+                for s in live.values():
+                    vals = [v for m in s["meters"] for v in m.values()]
+                    check(len(s["meters"]) == 2 and all(
+                        np.isfinite(vals)) and max(
+                        m["in_peak"] for m in s["meters"]) > 0,
+                          f"web UI meters {s['meters']}")
+                print(f"web UI /state: {len(live)} live sessions with "
+                      f"meters (device {sorted({str(s['device']) for s in live.values()})})")
+                # ---- 4. analysis over the socket while the rest stream ----
+                def by_client():
+                    t2 = time.perf_counter()
+                    ca = bridge.BridgeClient(sock, RATE, 2, init=False)
+                    ca.sock.settimeout(300)
+                    analyses["client"] = (ca.analyze(audio),
+                                          time.perf_counter() - t2)
+                    ca.close()
+
+                th = threading.Thread(target=by_client)
+                th.start()
+                t2 = time.perf_counter()
+                an_proc = subprocess.Popen([exe, "-s", sock, "-A", src],
+                                           stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE, text=True)
+        py_wall = time.perf_counter() - t_py
+        cl.close()
+        an_out, an_err = an_proc.communicate(timeout=600)
+        analyses["native"] = (an_out, time.perf_counter() - t2)
+        check(an_proc.returncode == 0, f"prt_bridge -A: {an_err[-2000:]}")
+        th.join(600)
+        check("client" in analyses, "the socket analysis did not finish")
+        walls, lats = zip(*[prt_bridge_done(p, t, f"session {s}")
+                            for s, (p, t) in enumerate(runs)])
+        times["serve_batched"] = time.perf_counter() - t_serve
+        sessions = list(log.sessions)
+        # ---- 3. two unbatched sessions on a second daemon ----
+        sock2 = os.path.join(tmp, "serve2.sock")
+        start_daemon(bridge, sock2, batch_sessions=0, pipeline=-1)
+        solo_srcs = []
+        for s in range(2):
+            solo_srcs.append(os.path.join(tmp, f"solo_in{s}.wav"))
+            write_wav(solo_srcs[-1], inputs[s][:, :n_solo], RATE)
+        t_solo = time.perf_counter()
+        runs2 = [prt_bridge_run(exe, sock2, angles[s], solo_srcs[s],
+                                os.path.join(tmp, f"solo_out{s}.wav"))
+                 for s in range(2)]
+        walls2, lats2 = zip(*[prt_bridge_done(p, t, f"unbatched {s}")
+                              for s, (p, t) in enumerate(runs2)])
+        times["serve_unbatched"] = time.perf_counter() - t_solo
+        sync()
+        counts = dict(_build.launches)
+    finally:
+        log.restore()
+        web.WebUI.start = web_start
+    print(f"phase serve_batched: {times['serve_batched']:.6f} s, "
+          f"serve_unbatched: {times['serve_unbatched']:.6f} s [{card}]")
+
+    # ---- the outputs, against the card's own in-process runs ----
+    batched = [s for s in sessions if s.batched]
+    check(len(batched) == SERVE_SESSIONS and not sessions[-1].batched,
+          "the eight prt_bridge sessions share the broker, the ninth is "
+          "served on its own")
+    broker = batched[0].plugin._broker
+    check(all(s.plugin._broker is broker for s in batched), "one broker")
+    check(broker.device.type == dev.type, "the broker is not on the card")
+    for k, s in enumerate(log.sessions):
+        st = log.stats(s)
+        print(f"daemon {1 + (k >= len(sessions))} session {k} "
+              f"({'batched' if s.batched else 'unbatched'}, depth "
+              f"{s.pipeline}): {st['xrt']:.3f}x realtime, daemon ms per "
+              f"block p50 {st['p50']:.4f} p99 {st['p99']:.4f} over "
+              f"{st['blocks']} blocks [{card}]")
+    for s, w in enumerate(walls):
+        print(f"prt_bridge session {s}: {SERVE_SECONDS / w:.3f}x realtime "
+              f"(client wall {w:.6f} s for {SERVE_SECONDS} s) [{card}]")
+    print(f"python client session: {SOLO_SECONDS / py_wall:.3f}x realtime, "
+          f"round trip ms per block p50 {np.percentile(py_ms, 50):.4f} p99 "
+          f"{np.percentile(py_ms, 99):.4f} [{card}]")
+    print(f"broker: {broker.dispatches} dispatches, {broker.frames_served} "
+          f"slot-frames, {broker.frames_served / broker.dispatches:.3f} "
+          f"frames per dispatch [{card}]")
+    for s, w in enumerate(walls2):
+        print(f"unbatched prt_bridge session {s}: {SOLO_SECONDS / w:.3f}x "
+              f"realtime (client wall {w:.6f} s) [{card}]")
+
+    errs = []
+    want = solo_streams(dev, inputs, lambda i: np.concatenate(angles),
+                        depth)
+    for s in range(SERVE_SESSIONS):
+        check(lats[s] == cl.latency, f"session {s} latency {lats[s]}")
+        y, rate, _ = read_wav(dsts[s])
+        check(rate == RATE and y.shape == (2, n_srv), f"session {s} output")
+        errs.append(float(np.abs(y - want[s]).max()))
+    py_y = np.concatenate(py_out, axis=1)[:, cl.latency : cl.latency + n_solo]
+    (py_want,) = solo_streams(
+        dev, [py_in], lambda i: py_angles[i >= n_solo // 2], depth)
+    errs.append(float(np.abs(py_y - py_want).max()))
+    depth2 = (lats2[0] - sgeom.latency) // sgeom.parsiz
+    want2 = solo_streams(dev, [x[:, :n_solo] for x in inputs[:2]],
+                         lambda i: np.concatenate(angles[:2]), depth2)
+    for s in range(2):
+        y, _, _ = read_wav(os.path.join(tmp, f"solo_out{s}.wav"))
+        errs.append(float(np.abs(y - want2[s]).max()))
+    print(f"served outputs vs StreamingRotator(pipeline_depth) on the card: "
+          f"max err per session {errs} (depth {depth}, unbatched {depth2})")
+    check(max(errs) < 1e-5, f"served audio vs solo streaming: {errs}")
+    check(cl.states == [(1.0, False), (1.25, False)],
+          f"STATE echoes {cl.states}")
+    check(len(cl.levels) >= 2 * (len(py_out) - 1)
+          and np.isfinite(np.asarray(cl.levels)).all(),
+          f"{len(cl.levels)} LEVELS entries for {len(py_out)} blocks")
+
+    local = find_min_peak_angle(audio, rate=RATE)
+    got, an_wall = analyses["client"]
+    for c, g in enumerate(got):
+        want_c = [float(np.float32(v)) for v in (
+            local.angles_deg[c], local.peak_zero[c], local.peak_min[c])]
+        check([g["angle_deg"], g["peak_zero"], g["peak_min"]] == want_c
+              and g["found"] == local.found[c],
+              f"socket analysis channel {c}: {g} vs {want_c}")
+    native_angles = result_angles(analyses["native"][0])
+    check(native_angles == [round(a, 2) for a in local.angles_deg],
+          f"prt_bridge -A angles {native_angles} vs {local.angles_deg}")
+    print(f"analysis of the 4-minute file over the socket while streaming: "
+          f"BridgeClient {an_wall:.6f} s, prt_bridge -A "
+          f"{analyses['native'][1]:.6f} s; angles {local.angles_deg} equal "
+          f"in-process, peaks equal [{card}]")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1063,8 +1428,17 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
         check(launches_cat[name] > 0,
               f"kernel {name} was not launched by the catalogue run")
     general_launches = launches_cat.pop("rotate_peak_sweep_general")
+    t0 = time.perf_counter()
+    launches_srv = drive_serving(tmp, dev, card, times, audio, src)
+    times["serving_run"] = time.perf_counter() - t0
+    print(f"phase serving_run (all of drive_serving): "
+          f"{times['serving_run']:.6f} s [{card}]")
+    print(f"launches of the serving run: {json.dumps(launches_srv)}")
+    for name in ("hilbert_small", "rotate_peak_sweep"):
+        check(launches_srv[name] > 0,
+              f"kernel {name} was not launched by the serving run")
     launches = {k: launches[k] + launches_wide[k] + launches_cat[k]
-                for k in launches}
+                + launches_srv[k] for k in launches}
 
     # ---- outputs are right ----
     y_sub, _, _ = read_wav(out_sub)

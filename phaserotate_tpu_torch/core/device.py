@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["as_f32", "resolve_device"]
+__all__ = ["as_f32", "indexed_device", "resolve_device"]
 
 
 def resolve_device(device=None, like=None) -> torch.device:
@@ -26,6 +26,22 @@ def resolve_device(device=None, like=None) -> torch.device:
             "no CUDA device: phaserotate_tpu_torch runs on the card by "
             "default; pass device=\"cpu\" (or CPU tensors) to run on the CPU")
     return torch.device("cuda")
+
+
+def indexed_device(option=None) -> torch.device:
+    """The device a plugin-style ``device`` option names.
+
+    An int indexes the CUDA devices (where the JAX package indexes
+    ``jax.devices()``) and raises ``ValueError`` out of range; a string or
+    ``torch.device`` (``"cpu"``) is used as given; ``None`` is the card
+    (:func:`resolve_device`)."""
+    if option is None or isinstance(option, (str, torch.device)):
+        return resolve_device(option)
+    index = int(option)
+    count = torch.cuda.device_count()
+    if not 0 <= index < count:
+        raise ValueError(f"device {index} out of range ({count} available)")
+    return torch.device("cuda", index)
 
 
 def as_f32(audio, device=None) -> torch.Tensor:

@@ -34,8 +34,9 @@ _MAX_TILE = 4096   # (b0, b1) tile in 32 KiB of shared memory
 
 
 def _rows(t: torch.Tensor, n: int) -> torch.Tensor:
-    """(..., n) -> (rows, n) with unit sample stride, a view if possible."""
-    t = t.reshape(-1, n)
+    """(..., n) -> (rows, n) with unit sample stride, a view if possible
+    (rows by count: an empty signal, n = 0, still has its rows)."""
+    t = t.reshape(t.shape[:-1].numel(), n)
     return t if t.stride(-1) == 1 else t.contiguous()
 
 

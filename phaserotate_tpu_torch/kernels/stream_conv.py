@@ -100,9 +100,11 @@ def _require_cuda_f32(x: torch.Tensor) -> None:
 
 
 def _frames(x: torch.Tensor, n_frames: int) -> torch.Tensor:
-    """(..., n) -> (rows, n_frames, P) contiguous, zero padded."""
+    """(..., n) -> (rows, n_frames, P) contiguous, zero padded (rows by
+    count: an empty signal, n = 0, still has its rows)."""
     n = x.shape[-1]
-    xp = torch.nn.functional.pad(x.reshape(-1, n), (0, n_frames * P - n))
+    xp = torch.nn.functional.pad(x.reshape(x.shape[:-1].numel(), n),
+                                 (0, n_frames * P - n))
     return xp.reshape(-1, n_frames, P).contiguous()
 
 

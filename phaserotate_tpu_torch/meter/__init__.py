@@ -8,6 +8,9 @@ from .meter import (
     MeterLevels,
     MeterState,
     delay_line_update,
+    host_meter_block,
+    host_meter_state,
+    host_reset_peaks,
     init_meter_state,
     meter_block,
     meter_falloff,
@@ -22,6 +25,9 @@ __all__ = [
     "MeterLevels",
     "MeterState",
     "delay_line_update",
+    "host_meter_block",
+    "host_meter_state",
+    "host_reset_peaks",
     "init_meter_state",
     "meter_block",
     "meter_falloff",

@@ -16,6 +16,12 @@ State is a dataclass of small tensors updated by plain functions.  Leading
 dims are channels: one call meters every channel, where the JAX package
 maps over them.  This is plain torch on every device, as the JAX package
 runs plain XLA here.
+
+``host_meter_state``, ``host_meter_block`` and ``host_reset_peaks`` are
+numpy twins, bit for bit, for meters kept on the host CPU (the plugin's):
+every torch op hands the GIL to another thread and back, and a daemon
+serving many sessions from many threads pays that handoff per op (PERF.md
+§6 "PR 10"); a numpy block of a few thousand samples keeps it.
 """
 
 from __future__ import annotations
@@ -38,6 +44,9 @@ __all__ = [
     "meter_block",
     "reset_peaks",
     "delay_line_update",
+    "host_meter_block",
+    "host_meter_state",
+    "host_reset_peaks",
 ]
 
 FALL_DB_PER_S = 15.0  # src/phaserotate.c:834
@@ -234,4 +243,92 @@ def reset_peaks(state: MeterState) -> MeterState:
         peak=torch.zeros_like(state.peak),
         diff=torch.ones_like(state.diff),
         momentary=torch.zeros_like(state.momentary),
+    )
+
+
+def host_meter_state(cfg: MeterConfig, channels: Tuple[int, ...] = ()
+                     ) -> MeterState:
+    """:func:`init_meter_state` with numpy arrays, for the host twins."""
+    state = init_meter_state(cfg, channels, "cpu")
+    return MeterState(**{f.name: getattr(state, f.name).numpy()
+                         for f in dataclasses.fields(MeterState)})
+
+
+def _meter_proc_np(mom, peak, holdcnt, new_peak, hold_samples: int,
+                   fpp: int, falloff):
+    """:func:`_meter_proc` in numpy float32 (the same operations, so the
+    same bits)."""
+    new_peak = np.where(np.isfinite(new_peak), new_peak, np.float32(0.0))
+    peak = np.maximum(peak, new_peak)
+    rises = new_peak > mom
+    holding = holdcnt > 0
+    mom_next = np.where(rises, new_peak,
+                        np.where(holding, mom, mom * falloff
+                                 + np.float32(1e-20)))
+    holdcnt_next = np.where(rises, np.int32(hold_samples),
+                            np.where(holding, holdcnt - np.int32(fpp),
+                                     holdcnt))
+    return mom_next, peak, holdcnt_next, new_peak
+
+
+def host_meter_block(state: MeterState, in_block: np.ndarray,
+                     out_block: np.ndarray, falloff, hold_samples: int,
+                     angle_changed) -> Tuple[MeterState, MeterLevels]:
+    """:func:`meter_block` on a :func:`host_meter_state` in numpy float32,
+    bit-equal to it; the levels are numpy arrays."""
+    falloff = np.float32(falloff)
+    in_block = np.asarray(in_block, np.float32)
+    out_block = np.asarray(out_block, np.float32)
+    changed = np.asarray(angle_changed, bool)
+    n = in_block.shape[-1]
+    latency = state.dly.shape[-1]
+    combined = np.concatenate([state.dly, in_block], axis=-1)
+    delayed, dly = combined[..., :n], combined[..., n:]
+
+    def abs_max(x):
+        return (np.abs(x).max(axis=-1) if n
+                else np.zeros(x.shape[:-1], np.float32))
+
+    mom0, peak0, hold0, lvl_in = _meter_proc_np(
+        state.momentary[..., 0], state.peak[..., 0], state.holdcnt[..., 0],
+        abs_max(delayed), hold_samples, n, falloff)
+    # the delayed reset before the output ballistics, as in meter_block
+    resetting = state.reset_delay > 0
+    one, zero = np.float32(1.0), np.float32(0.0)
+    diff_min = np.where(resetting, one, state.diff[..., 0])
+    diff_max = np.where(resetting, one, state.diff[..., 1])
+    mom1_pre = np.where(resetting, zero, state.momentary[..., 1])
+    reset_delay = np.where(resetting, state.reset_delay - np.int32(n),
+                           state.reset_delay)
+    reset_delay = np.where(changed, np.int32(latency + n), reset_delay)
+    mom1, peak1, hold1, lvl_out = _meter_proc_np(
+        mom1_pre, state.peak[..., 1], state.holdcnt[..., 1],
+        abs_max(out_block), hold_samples, n, falloff)
+    gated = (mom0 > np.float32(DIFF_GATE)) & (mom1 > np.float32(DIFF_GATE))
+    ratio = np.where(gated, mom1 / np.maximum(mom0, np.float32(1e-30)), one)
+    diff_min = np.where(gated & (ratio < diff_min), ratio, diff_min)
+    diff_max = np.where(gated & (ratio > diff_max), ratio, diff_max)
+    new_state = MeterState(
+        momentary=np.stack([mom0, mom1], axis=-1),
+        peak=np.stack([peak0, peak1], axis=-1),
+        holdcnt=np.stack([hold0, hold1], axis=-1),
+        diff=np.stack([diff_min, diff_max], axis=-1),
+        reset_delay=reset_delay,
+        dly=dly,
+    )
+    levels = MeterLevels(
+        in_cur=lvl_in, in_mom=mom0, in_peak=peak0,
+        out_cur=lvl_out, out_mom=mom1, out_peak=peak1,
+        diff_cur=ratio, diff_min=diff_min, diff_max=diff_max,
+    )
+    return new_state, levels
+
+
+def host_reset_peaks(state: MeterState) -> MeterState:
+    """:func:`reset_peaks` on a :func:`host_meter_state`."""
+    return dataclasses.replace(
+        state,
+        peak=np.zeros_like(state.peak),
+        diff=np.ones_like(state.diff),
+        momentary=np.zeros_like(state.momentary),
     )

@@ -49,8 +49,9 @@ def rotated_peak_sweep(
     """
     lead = b0.shape[:-1]
     n = b0.shape[-1]
-    rows = b0.reshape(-1, n)
-    hil = b1.reshape(-1, n)
+    # rows by count, not -1: an empty signal (n = 0) still has its rows
+    rows = b0.reshape(lead.numel(), n)
+    hil = b1.reshape(lead.numel(), n)
     a = cos_sin.shape[-1]
     c = cos_sin[0][None, :, None]
     s = cos_sin[1][None, :, None]

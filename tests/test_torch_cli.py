@@ -254,7 +254,11 @@ def test_port_runs_without_jax():
         "    pr.__path__, pr.__name__ + '.')]\n"
         "assert len(mods) > 40, mods\n"
         "for m in ('fleet', 'parallel', 'parallel.batch', 'parallel.mesh',\n"
-        "          'search.packed'):\n"
+        "          'search.packed', 'plugin.lifecycle', 'plugin.uris',\n"
+        "          'plugin.protocol', 'plugin.descriptors', 'plugin.ttl',\n"
+        "          'gui.client', 'gui.deflect', 'gui.render', 'gui.widgets',\n"
+        "          'gui.web', 'hostapp', 'tui', 'io.playback',\n"
+        "          'stream.broker', 'bridge'):\n"
         "    assert pr.__name__ + '.' + m in mods, m\n"
         "for m in mods:\n"
         "    if not m.endswith('.__main__'):  # that one runs the CLI\n"
@@ -276,6 +280,22 @@ def test_port_runs_without_jax():
         "mesh = parallel.file_mesh(3, devices=['cpu'] * 3)\n"
         "t, r = parallel.angle_sharded_sweep_peaks(x, g, mesh)\n"
         "assert t.shape == (2, 360) and r.shape == (2,)\n"
+        "import threading\n"
+        "from phaserotate_tpu_torch import bridge\n"
+        "from phaserotate_tpu_torch.hostapp import StandaloneHost\n"
+        "host = StandaloneHost(48000, 2, block=1024, device='cpu')\n"
+        "host.set_angles(35.0)\n"
+        "assert host.process(x[:, :1024]).shape == (2, 1024)\n"
+        "sock = os.path.join(d, 'e.sock')\n"
+        "rfd, wfd = os.pipe()\n"
+        "threading.Thread(target=bridge.serve, args=(sock,), daemon=True,\n"
+        "                 kwargs=dict(ready_fd=wfd, device='cpu',\n"
+        "                             batch_sessions=2, pipeline=1)).start()\n"
+        "assert os.read(rfd, 1) == b'R'\n"
+        "cl = bridge.BridgeClient(sock, 48000, 2)\n"
+        "assert cl.process(x[:, :1024], 35.0).shape == (2, 1024)\n"
+        "assert cl.analyze(x)[0]['angle_deg'] == res.angles_deg[0]\n"
+        "cl.close()\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'jax' or m.startswith(('jax.', 'phaserotate_tpu.'))\n"
         "       or m == 'phaserotate_tpu']\n"

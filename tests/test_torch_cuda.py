@@ -448,3 +448,124 @@ def test_fleet_transports_equal_on_card(dev, tmp_path):
         one = fleet._apply_one(p, single, base[p][0], 0)
         assert np.abs(read_audio(written[p])[0]
                       - read_audio(one)[0]).max() < 1e-6
+
+
+def _wired_plugin(options, stereo=True, n=1024):
+    from phaserotate_tpu_torch import plugin as pp
+
+    p = pp.PhaseRotatePlugin(pp.PLUGIN_URI_STEREO if stereo
+                             else pp.PLUGIN_URI, 48000, options=options)
+    ports = dict(control=[], notify=[],
+                 angles=[np.zeros(1, np.float32) for _ in range(p.n_chn)],
+                 io=[np.zeros(n, np.float32) for _ in range(p.n_chn)])
+    p.connect_port(pp.PortIndex.ATOM_CONTROL, ports["control"])
+    p.connect_port(pp.PortIndex.ATOM_NOTIFY, ports["notify"])
+    for c in range(p.n_chn):
+        p.connect_port(3 + 3 * c, ports["angles"][c])
+        p.connect_port(4 + 3 * c, ports["io"][c])
+        p.connect_port(5 + 3 * c, ports["io"][c])
+    p.activate()
+    ports["control"].append(pp.UiOn())
+    return p, ports
+
+
+@pytest.mark.parametrize("pipeline", [0, 2])
+def test_plugin_on_card_equals_cpu(dev, pipeline):
+    """The plugin with its engine on the card (the default, and the
+    option's index 0) against the same plugin on the CPU: outputs and
+    levels within 1e-5; the meters stay on the host either way."""
+    from phaserotate_tpu_torch import plugin as pp
+
+    rng = np.random.default_rng(61)
+    blocks = [(0.4 * rng.standard_normal((2, 1024))).astype(np.float32)
+              for _ in range(12)]
+    runs = []
+    for options in ({"device": 0}, {"device": "cpu"}, {}):
+        if pipeline:
+            options["pipeline"] = pipeline
+        p, ports = _wired_plugin(options)
+        outs, levels = [], []
+        for i, b in enumerate(blocks):
+            for c in range(2):
+                ports["angles"][c][0] = [0.0, 35.0, -160.0][min(i, 2)] * (c + 1)
+                ports["io"][c][:] = b[c]
+            p.run(1024)
+            outs.append(np.stack([io.copy() for io in ports["io"]]))
+            levels += [[getattr(m, f) for f in ("in_cur", "out_cur",
+                                                "out_peak", "diff_min")]
+                       for m in ports["notify"]
+                       if isinstance(m, pp.LevelsMsg)]
+            ports["notify"].clear()
+        assert isinstance(p._mtr.dly, np.ndarray)  # on the host
+        runs.append((p.device.type, np.concatenate(outs, axis=1),
+                     np.array(levels)))
+    assert [r[0] for r in runs] == ["cuda", "cpu", "cuda"]
+    np.testing.assert_allclose(runs[0][1], runs[1][1], atol=1e-5)
+    np.testing.assert_allclose(runs[0][2], runs[1][2], atol=1e-5)
+    np.testing.assert_array_equal(runs[0][1], runs[2][1])
+
+
+def test_broker_pinned_delivery_on_card(dev):
+    """The broker on the card: its outputs come through pinned host
+    buffers (one per dispatch, kept until every slot popped it) and equal
+    the CPU broker's within 1e-5, three sessions from three threads."""
+    import threading
+
+    from phaserotate_tpu_torch.stream.broker import StreamBroker
+
+    geom = stream_geometry_for_rate(48000)
+    rng = np.random.default_rng(62)
+    xs = [(0.4 * rng.standard_normal((2, 20 * 256))).astype(np.float32)
+          for _ in range(3)]
+    results = {}
+    for where in ("cuda", "cpu"):
+        b = StreamBroker(geom, 2, capacity=4, depth=3, device=where)
+        slots = [b.open() for _ in range(3)]
+        outs = [[] for _ in range(3)]
+
+        def run(s):
+            degs = np.array([20.0 * (s + 1), -30.0], np.float32)
+            for j in range(20):
+                outs[s].append(b.submit(slots[s],
+                                        xs[s][:, j * 256 : (j + 1) * 256],
+                                        degs).copy())
+
+        threads = [threading.Thread(target=run, args=(s,)) for s in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        if where == "cuda":
+            held = [e for pipe in b._pipes for e in pipe]
+            assert held and all(h.is_pinned() for h, _, _ in held)
+        results[where] = [np.concatenate(o, axis=1) for o in outs]
+    for k, c in zip(results["cuda"], results["cpu"]):
+        np.testing.assert_allclose(k, c, atol=1e-5)
+
+
+def test_daemon_analysis_on_card_runs_the_kernels(dev, tmp_path):
+    """A daemon on the card (no device argument): ANALYZE runs the
+    Hilbert and sweep kernels and answers the in-process search's angles;
+    an empty analysis is answered, as the JAX daemon answers it."""
+    import threading
+
+    from phaserotate_tpu_torch import bridge
+
+    sock = str(tmp_path / "e.sock")
+    r, w = os.pipe()
+    threading.Thread(target=bridge.serve, args=(sock,), daemon=True,
+                     kwargs=dict(ready_fd=w, batch_sessions=2)).start()
+    assert os.read(r, 1) == b"R"
+    rng = np.random.default_rng(63)
+    x = (0.4 * rng.standard_normal((2, 96000))).astype(np.float32)
+    cl = bridge.BridgeClient(sock, 48000, 2, init=False)
+    _build.reset_launches()
+    got = cl.analyze(x)
+    assert _build.launches["rotate_peak_sweep"] > 0
+    assert _build.launches["hilbert_small"] > 0
+    want = pr.find_min_peak_angle(x, rate=48000)
+    assert [g["angle_deg"] for g in got] == \
+        [float(np.float32(a)) for a in want.angles_deg]
+    empty = cl.analyze(np.zeros((1, 0), np.float32))
+    assert empty[0]["found"] is False
+    cl.close()

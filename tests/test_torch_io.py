@@ -1,5 +1,7 @@
 """The port's file layer (phaserotate_tpu_torch/io) against the JAX
-package's (phaserotate_tpu/io), which it copies.
+package's (phaserotate_tpu/io), which it copies; and every other module
+the port copies from the JAX package (``COPIED_ELSEWHERE``: the plugin
+role's JAX-free modules) held to its source the same way.
 
 Both are numpy/ctypes host code, so everything here is exact: a file
 written by one package is read identically by the other, the lossless
@@ -27,6 +29,13 @@ from phaserotate_tpu_torch.io import audio as p_audio
 RATE = 48000
 COPIED = ["native", "wav", "aiff", "au", "containers", "flac", "vorbis",
           "vorbisenc", "opus", "mp3", "audio"]
+# the copies outside io/, by dotted path under the package (the plugin
+# role's JAX-free modules; their relative imports reach the port's own
+# plugin.lifecycle and hostapp)
+COPIED_ELSEWHERE = ["io.playback", "plugin", "plugin.uris", "plugin.protocol",
+                    "plugin.descriptors", "plugin.ttl", "gui", "gui.client",
+                    "gui.deflect", "gui.render", "gui.widgets", "gui.web",
+                    "tui"]
 
 needs_vorbis = pytest.mark.skipif(
     not j_vorbisenc.available(), reason="system libvorbis not present")
@@ -223,29 +232,38 @@ def _definitions(module):
             and o.__module__ == module.__name__}
 
 
+def _pair(module):
+    """(JAX module, port module) of a COPIED (io) or COPIED_ELSEWHERE name."""
+    dotted = module if module in COPIED_ELSEWHERE else f"io.{module}"
+    return (importlib.import_module(f"phaserotate_tpu.{dotted}"),
+            importlib.import_module(f"phaserotate_tpu_torch.{dotted}"))
+
+
 def _source_cases():
     cases = []
-    for m in COPIED:
-        j_mod = importlib.import_module(f"phaserotate_tpu.io.{m}")
+    for m in COPIED + COPIED_ELSEWHERE:
+        j_mod, _ = _pair(m)
         cases += [(m, n) for n in sorted(_definitions(j_mod))]
     return cases
 
 
 @pytest.mark.parametrize("module,name", _source_cases())
 def test_copied_definition_has_the_source_of_its_original(module, name):
-    j_mod = importlib.import_module(f"phaserotate_tpu.io.{module}")
-    p_mod = importlib.import_module(f"phaserotate_tpu_torch.io.{module}")
+    j_mod, p_mod = _pair(module)
     assert name in _definitions(p_mod), f"{module}.{name} is missing"
     assert inspect.getsource(getattr(p_mod, name)) == \
         inspect.getsource(getattr(j_mod, name))
 
 
-@pytest.mark.parametrize("module", COPIED)
+@pytest.mark.parametrize("module", COPIED + COPIED_ELSEWHERE)
 def test_copied_module_differs_in_its_docstring_only(module):
     """Outside the module docstring the copy is its source line for line
     (constants and import lines included), and defines nothing more."""
-    j_mod = importlib.import_module(f"phaserotate_tpu.io.{module}")
-    p_mod = importlib.import_module(f"phaserotate_tpu_torch.io.{module}")
+    import os
+
+    import phaserotate_tpu
+
+    j_mod, p_mod = _pair(module)
 
     def body(mod):
         text = inspect.getsource(mod)
@@ -253,5 +271,7 @@ def test_copied_module_differs_in_its_docstring_only(module):
         return text[doc_end:]
 
     assert body(p_mod) == body(j_mod)
-    assert "copy of ``phaserotate_tpu/io/" in p_mod.__doc__
+    source = os.path.relpath(j_mod.__file__,
+                             os.path.dirname(phaserotate_tpu.__file__))
+    assert f"copy of ``phaserotate_tpu/{source}``" in p_mod.__doc__
     assert sorted(_definitions(p_mod)) == sorted(_definitions(j_mod))

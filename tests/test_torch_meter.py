@@ -155,3 +155,39 @@ def test_meter_state_from_jax_round_trip(rng):
     back = meter_state_to_jax(ps)
     for f, v in arrays.items():
         np.testing.assert_array_equal(back[f], v)
+
+
+@pytest.mark.parametrize("channels", [(), (2,)], ids=["mono", "stereo"])
+def test_host_twins_bit_equal_to_the_torch_meters(channels):
+    """host_meter_state / host_meter_block / host_reset_peaks (numpy, the
+    plugin's host meters) give the torch functions' bits: every level and
+    every state field, over block sizes 0-2048, loud and quiet input, an
+    inf sample, angle changes and peak resets."""
+    import dataclasses
+
+    cfg = pm.MeterConfig(rate=RATE, latency=LAT)
+    ts = pm.init_meter_state(cfg, channels, "cpu")
+    ns = pm.host_meter_state(cfg, channels)
+    rng = np.random.default_rng(77)
+    for i in range(120):
+        n = (1024, 333, 96, 0, 2048)[i % 5]
+        gain = (0.5, 1e-4)[i // 30 % 2]
+        x = (gain * rng.standard_normal((*channels, n))).astype(np.float32)
+        y = (0.3 * rng.standard_normal((*channels, n))).astype(np.float32)
+        if i % 17 == 3 and n:
+            x[..., 0] = np.inf
+        changed = rng.random(channels) < 0.1
+        fall = pm.meter_falloff(RATE, n)
+        ts, tl = pm.meter_block(ts, torch.from_numpy(x), torch.from_numpy(y),
+                                fall, cfg.hold_samples,
+                                torch.from_numpy(np.asarray(changed)))
+        ns, nl = pm.host_meter_block(ns, x, y, fall.item(), cfg.hold_samples,
+                                     changed)
+        if i % 41 == 40:
+            ts, ns = pm.reset_peaks(ts), pm.host_reset_peaks(ns)
+        for f in _FIELDS:
+            a, b = getattr(tl, f).numpy(), np.asarray(getattr(nl, f))
+            assert a.dtype == b.dtype and np.array_equal(a, b), (i, f)
+        for f in dataclasses.fields(pm.MeterState):
+            a, b = getattr(ts, f.name).numpy(), getattr(ns, f.name)
+            assert a.dtype == b.dtype and np.array_equal(a, b), (i, f.name)

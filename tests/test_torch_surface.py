@@ -2,7 +2,9 @@
 
 Every public name of the JAX top level, ``core``, ``ops``, ``search``
 (with ``search.sweep`` and ``search.packed``), ``parallel`` (with its two
-modules), ``fleet``, ``io`` and ``utils`` exists in the port, apart
+modules), ``fleet``, ``io``, ``utils`` and the plugin role and serving
+(``plugin``, ``gui``, ``stream`` with ``stream.broker``, ``bridge``,
+``hostapp``, ``tui``, ``io.playback``) exists in the port, apart
 from the ones listed below with the reason each stays behind; the small
 functions that closed the gaps agree with their JAX twins on seeded input;
 the int16 ingest equals the float path; and the profiling hooks work on
@@ -50,7 +52,8 @@ LEFT_BEHIND = {
 }
 SURFACES = ["", "core", "ops", "search", "search.sweep", "search.packed",
             "parallel", "parallel.mesh", "parallel.batch", "fleet", "io",
-            "utils"]
+            "utils", "plugin", "plugin.lifecycle", "gui", "stream",
+            "stream.broker", "bridge", "hostapp", "tui", "io.playback"]
 
 
 def _pair(sub):
