@@ -84,7 +84,10 @@ then, on the first CUDA device:
    ``torch.fft`` for the convolutions, ``torch.linalg.vector_norm`` for
    the peak; timed here only, the port never calls them), with the card's
    name and power limit (fused_conv's entry also carries both times at its
-   two main-path partition sizes, 4096 and 16384, under ``ms_by_parsiz``).
+   two main-path partition sizes, 4096 and 16384, under ``ms_by_parsiz``,
+   with its persistent grid's blocks and registers per thread; a
+   ``fused_conv parsiz ...`` line per size gives the device ms of the run
+   kernel and of the fix-up of the run-first frames).
 
 After the build it prints ptxas' registers and spills per kernel and a
 ``sass:`` line, the FMUL/FADD/FMNMX/LDS counts of the sweep kernel's
@@ -306,23 +309,40 @@ def cuda_ms(fn, reps: int = 5) -> float:
 
 
 def device_split(fn) -> dict:
-    """Device ms of each CUDA kernel that one warm call of ``fn`` runs,
-    from torch.profiler: the kernel's own passes and the wrapper's
-    framing copies apart."""
+    """Device ms of each CUDA kernel (and copy) that one warm call of
+    ``fn`` runs, from the kernel events of a torch.profiler Chrome trace:
+    the kernel's own passes and the wrapper's framing copies apart.
+    ``drive`` takes these right after the main path: late in this script
+    the profiler's sessions recorded no device events."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     sync()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         fn()
         sync()
-    split = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-        if us > 0:
-            split[e.key[:60]] = us / 1e3
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    split: dict = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            key = e["name"][:60]
+            split[key] = split.get(key, 0.0) + e.get("dur", 0) / 1e3
     return split
+
+
+def framed(x, parsiz: int):
+    """(..., n) -> (rows, n_frames, parsiz) with one zero frame past the
+    signal, as ``fused_hilbert`` frames it."""
+    import torch
+
+    n_f = -(-x.shape[-1] // parsiz) + 1
+    return torch.nn.functional.pad(
+        x, (0, n_f * parsiz - x.shape[-1])).reshape(-1, n_f, parsiz)
 
 
 @contextlib.contextmanager
@@ -1127,9 +1147,20 @@ def drive_serving(tmp, dev, card, times, audio, src) -> dict:
             py_ms.append(1e3 * (time.perf_counter() - t1))
             if b == 20:
                 # ---- 5. the web UI lists every live session ----
+                # a session's meters go live with its first metered block,
+                # which a session the GIL starves may not have reached
+                # yet: read until every one has (60 s at most)
                 url = webuis[0].url + "state"
-                with urllib.request.urlopen(url, timeout=60) as r:
-                    live = json.loads(r.read())["sessions"]
+                deadline = time.perf_counter() + 60.0
+                while True:
+                    with urllib.request.urlopen(url, timeout=60) as r:
+                        live = json.loads(r.read())["sessions"]
+                    if time.perf_counter() > deadline or (
+                            len(live) == SERVE_SESSIONS + 1 and all(
+                                any(m["in_peak"] > 0 for m in s["meters"])
+                                for s in live.values())):
+                        break
+                    time.sleep(0.2)
                 check(len(live) == SERVE_SESSIONS + 1,
                       f"web UI lists {len(live)} sessions")
                 for s in live.values():
@@ -1411,6 +1442,32 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
         if name not in ("fused_rotate_fir", "peak"):  # no production caller
             check(count > 0,
                   f"kernel {name} was not launched by the main path")
+    # the ramp: a target that changes every 50 plugin blocks
+    n_blocks = -(-(n_4min + sgeom.latency) // sgeom.parsiz)
+    ramp_degs = np.repeat(rng.uniform(-180.0, 180.0, -(-n_blocks // 50)),
+                          50)[:n_blocks].astype(np.float32)
+    angles, das, _, _ = angle_sequence(np.float32(0.0), ramp_degs, sgeom)
+    check(bool((das != 0).any()), "the ramp schedule has no slope")
+    params = torch.from_numpy(
+        _internal_angle_params(angles, das, sgeom)).to(dev)[None]
+    fr256 = torch.nn.functional.pad(
+        x4[0], (0, params.shape[1] * sc.P - n_4min)).reshape(1, -1, sc.P)
+    # where the convolutions' device time goes, by kernel, at the main
+    # path's shapes (outside every counted run)
+    turns = degrees_to_turns(stem_degs)
+    splits = {
+        "stream_conv_hilbert": device_split(
+            lambda: sc.hilbert_small(x4, geom.parsiz)),
+        "stream_conv_mix": device_split(
+            lambda: sc.rotate_small(stems, turns, 3072)),
+        "stream_conv_stream_mix": device_split(
+            lambda: sc.fused_stream_mix(fr256, params, sgeom.firlen))}
+    for parsiz, firlen in ((4096, 3072), (16384, 16128)):
+        frames_p = framed(stems, parsiz)
+        spec_p = fc.hilbert_fir_spectrum(firlen, parsiz, dev)
+        splits[f"fused_conv_{parsiz}"] = device_split(
+            lambda: fc.fused_ola_conv(frames_p, spec_p, parsiz))
+        del frames_p
 
     # ---- 2b. the wider surface, counted from 0 again ----
     y_inp, _, _ = read_wav(out_inp)
@@ -1671,7 +1728,6 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
         library_ms=cuda_ms(lambda: conv_yardstick(x4, geom.parsiz), 2)))
     del h_small, h_lib
 
-    turns = degrees_to_turns(stem_degs)
     mix_out = sc.rotate_small(stems, turns, 3072)
     mix_err = float((mix_out - sc.rotate_small_plain(stems, turns, 3072)
                      ).abs().max())
@@ -1694,16 +1750,6 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
                                                              3072), 2)))
     del mix_out
 
-    # the ramp: a target that changes every 50 plugin blocks
-    n_blocks = -(-(n_4min + sgeom.latency) // sgeom.parsiz)
-    ramp_degs = np.repeat(rng.uniform(-180.0, 180.0, -(-n_blocks // 50)),
-                          50)[:n_blocks].astype(np.float32)
-    angles, das, _, _ = angle_sequence(np.float32(0.0), ramp_degs, sgeom)
-    check(bool((das != 0).any()), "the ramp schedule has no slope")
-    params = torch.from_numpy(
-        _internal_angle_params(angles, das, sgeom)).to(dev)[None]
-    fr256 = torch.nn.functional.pad(
-        x4[0], (0, params.shape[1] * sc.P - n_4min)).reshape(1, -1, sc.P)
     sm_err = float((sc.fused_stream_mix(fr256, params, sgeom.firlen)
                     - sc.fused_stream_mix_plain(fr256, params, sgeom.firlen)
                     ).abs().max())
@@ -1722,23 +1768,15 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
         library_ms=None))
     # where a stream_conv call's time goes: its two passes and the
     # wrapper's framing copies
-    for name, fn in (
-            ("stream_conv_hilbert", lambda: sc.hilbert_small(x4, geom.parsiz)),
-            ("stream_conv_mix", lambda: sc.rotate_small(stems, turns, 3072)),
-            ("stream_conv_stream_mix",
-             lambda: sc.fused_stream_mix(fr256, params, sgeom.firlen))):
-        print(f"{name} device ms by kernel: {json.dumps(device_split(fn))} "
+    for name in ("stream_conv_hilbert", "stream_conv_mix",
+                 "stream_conv_stream_mix"):
+        print(f"{name} device ms by kernel: {json.dumps(splits[name])} "
               f"[{card}]")
 
     # fused_conv conv mode at every supported partition size: the two
     # main-path shapes (64 stems at 4096 and 16384) and the 4-minute
     # stereo file at 2048 and 8192
-    def framed(x, parsiz):
-        n_f = -(-x.shape[-1] // parsiz) + 1
-        return torch.nn.functional.pad(
-            x, (0, n_f * parsiz - x.shape[-1])).reshape(-1, n_f, parsiz)
-
-    fc_err, fc_ms, fc_bound = 0.0, {}, {}
+    fc_err, fc_ms, fc_bound, fc_geo = 0.0, {}, {}, {}
     for parsiz, firlen, xin in ((2048, 2048, x4), (4096, 3072, stems),
                                 (8192, 8192, x4), (16384, 16128, stems)):
         frames_p = framed(xin, parsiz)
@@ -1763,6 +1801,13 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
             print(f"fused_conv parsiz {parsiz} 64x60 s: kernel "
                   f"{fc_ms[parsiz][0]!r} ms, plain {fc_ms[parsiz][1]!r} ms "
                   f"[{card}]")
+            # the run kernel against the fix-up of the run-first frames,
+            # and the persistent grid
+            fc_geo[parsiz] = dict(
+                **fc.kernel_geometry(parsiz, False, dev),
+                device_ms_by_kernel=splits[f"fused_conv_{parsiz}"])
+            print(f"fused_conv parsiz {parsiz} 64x60 s: "
+                  f"{json.dumps(fc_geo[parsiz])} [{card}]")
         del frames_p
     # the plain twin is the library call here: torch.fft, cuFFT
     kernels.append(dict(
@@ -1772,7 +1817,9 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
         launches=launches["fused_hilbert"], max_abs_err=fc_err,
         ms=fc_ms[4096][0], plain_ms=fc_ms[4096][1], **fc_bound[4096],
         library_ms=fc_ms[4096][1],
-        ms_by_parsiz={str(p): dict(ms=k, plain_ms=pl, **fc_bound[p])
+        ms_by_parsiz={str(p): dict(ms=k, plain_ms=pl, **fc_bound[p],
+                                   grid_blocks=fc_geo[p]["blocks"],
+                                   registers=fc_geo[p]["registers"])
                       for p, (k, pl) in fc_ms.items()}))
 
     # the two kernels no main path calls (``launches`` 0): this check's

@@ -1,0 +1,251 @@
+#!/usr/bin/env python3
+"""fused_conv's Hopper kernel against an earlier version of it, on one card.
+
+    git show <commit>:phaserotate_tpu_torch/csrc/fused_conv.cu \\
+        > build/parent_fused_conv.cu
+    python3 fused_conv_ab.py --parent build/parent_fused_conv.cu \
+        [--json out.json]
+
+The parent is a ``fused_conv.cu`` with the earlier two-pass C interface
+(one block per frame, a tail buffer the size of the signal).  The script
+builds it, this checkout's kernel, and variants of this checkout's kernel
+made here from its source (``VARIANTS``, never written into the
+checkout): ``global`` reads the stage-major twiddle table from global
+memory through ``__ldg`` in place of staging it in shared memory;
+``occupancy`` caps the run kernel at 32 registers where a thread carries
+two float4 (parsiz 2048-8192), for the parent's blocks per SM.  It then
+runs,
+at the main path's shapes (64 one-minute stems at parsiz 4096 and 16384,
+the 4-minute stereo file's shape at 2048 and 8192, the mix on the stems
+with the 3072-tap FIR):
+
+- ``parent``: the parent kernel;
+- ``runs``: this checkout's kernel on its persistent grid, as shipped;
+- ``runs_<variant>``: each variant on its persistent grid;
+- ``frames_global``: the ``global`` variant with one block per frame (every
+  frame the first of its run, so the second kernel adds every tail: the
+  parent's two passes with stage-major twiddles);
+
+holds every output against the parent's bit for bit (max |diff| printed,
+0.0 expected: the butterflies and their twiddle values are the same), and
+times each with CUDA events in turns (in that order, then the reverse
+order, mean of the two).  It prints the ptxas report of the parent and the
+variants, the launch geometry (blocks, threads, registers, spills) of each
+build, and the device ms of the run kernel and of the fix-up from
+torch.profiler.  The last line is a JSON object of it all, also written
+to ``--json`` where given; the exit code is 1 unless every output is
+bit-identical.  Without a CUDA device it exits 2.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+# variants: (old, new, count) replacements of this checkout's source.
+# ``global``: the stage-major table read through __ldg, not staged
+GLOBAL_TABLE = (
+    ("""  float4* tws = smem4 + (m >> 1);  // the twiddle table after the frame
+  for (int i = threadIdx.x; i < table_len(m); i += blockDim.x) {
+    tws[i] = __ldg(twiddles + i);
+  }
+""", "  const float4* tws = twiddles;\n", 1),
+    ("      const float4 t = tw[j];\n",
+     "      const float4 t = __ldg(tw + j);\n", 2),
+    ("""  *smem = static_cast<size_t>(m) * sizeof(float2) +
+          static_cast<size_t>(table_len(m)) * sizeof(float4);""",
+     "  *smem = static_cast<size_t>(m) * sizeof(float2);", 1),
+)
+
+
+# ``occupancy``: at most 32 registers where a thread carries 2 float4
+# (parsiz 2048-8192), so as many blocks fit per SM as the parent's had
+OCCUPANCY = (
+    ("template <int kCarry, bool kMix>\n"
+     "__global__ void __launch_bounds__(1024)",
+     "template <int kCarry, bool kMix>\n__global__ void "
+     "__launch_bounds__(1024, kCarry == 2 ? 2 : 1)", 1),
+)
+VARIANTS = {"global": GLOBAL_TABLE, "occupancy": OCCUPANCY}
+
+
+def variant_source(src: str, edits) -> str:
+    for old, new, count in edits:
+        if src.count(old) != count:
+            raise RuntimeError(f"variant edit matched {src.count(old)} "
+                               f"times, not {count}: {old!r}")
+        src = src.replace(old, new)
+    return src
+
+
+def build_lib(src_text: str, tmp: str, name: str):
+    """Compile one source with the port's flags into ``tmp``; returns
+    (ctypes handle, ptxas lines)."""
+    from phaserotate_tpu_torch.kernels import _build
+
+    cu = os.path.join(tmp, f"{name}.cu")
+    so = os.path.join(tmp, f"lib{name}.so")
+    with open(cu, "w") as f:
+        f.write(src_text)
+    log = _build._nvcc_all([[_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                             "-o", so, cu]])
+    ptxas = [ln.strip() for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln or "entry function" in ln]
+    return ctypes.CDLL(so), ptxas
+
+
+def main(argv=None) -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", required=True,
+                    help="the earlier fused_conv.cu (two-pass interface)")
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--json", help="also write the report to this file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("fused_conv_ab: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+    from phaserotate_tpu_torch.kernels import _build
+    from phaserotate_tpu_torch.kernels import fused_conv as fc
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card)
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    src = open(os.path.join(REPO, "phaserotate_tpu_torch", "csrc",
+                            "fused_conv.cu")).read()
+    with open(args.parent) as f:
+        parent_src = f.read()
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    with tempfile.TemporaryDirectory(prefix="fused_conv_ab_") as tmp:
+        libs = {"runs": _build.lib()}
+        parent, ptxas = build_lib(parent_src, tmp, "parent")
+        for line in ptxas:
+            print("ptxas parent:", line)
+        parent.prt_fused_conv.argtypes = (ptr,) * 7 + (i32,) * 4 + (ptr,)
+        parent.prt_fused_conv.restype = i32
+        for name, edits in VARIANTS.items():
+            handle, ptxas = build_lib(variant_source(src, edits), tmp, name)
+            for line in ptxas:
+                print(f"ptxas {name}:", line)
+            for fn, types in (
+                    (handle.prt_fused_conv, (ptr,) * 7 + (i32,) * 5 + (ptr,)),
+                    (handle.prt_fused_conv_grid, (i32, i32, ptr))):
+                fn.argtypes, fn.restype = types, i32
+            libs[f"runs_{name}"] = handle
+        report = dict(card=card, parsiz={}, mix={})
+
+        def geometry(handle, parsiz, mix):
+            info = (ctypes.c_int * 4)()
+            _build.check(handle.prt_fused_conv_grid(parsiz, int(mix), info),
+                         "geometry")
+            return dict(zip(("blocks", "threads", "registers",
+                             "local_bytes"), info))
+
+        def calls(frames, spec_c, parsiz, cs_rows, lat):
+            """Every launch on (B, n_blocks, parsiz) frames, by name, with
+            its output buffer and its grid."""
+            b, n_blocks, _ = frames.shape
+            n_frames = b * n_blocks
+            spec, wp = fc._product_tables(spec_c, parsiz)
+            tw_nat = torch.tensor(fc._twiddles_np(parsiz), device=dev)
+            tw_stage = fc._stage_twiddles(parsiz, dev)
+            mix = cs_rows is not None
+            csp = None if cs_rows is None else cs_rows.data_ptr()
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            tail = torch.empty_like(frames)  # the parent's: the whole signal
+            grids = {k: min(geometry(h, parsiz, mix)["blocks"], n_frames)
+                     for k, h in libs.items()}
+            # one block per frame: the parent's two passes, stage-major
+            grids["frames_global"] = n_frames
+            handles = dict(libs, frames_global=libs["runs_global"])
+            out = {k: torch.empty((b, n_blocks * parsiz), device=dev)
+                   for k in ("parent", *handles)}
+
+            def new(key):
+                def run():
+                    _build.check(handles[key].prt_fused_conv(
+                        frames.data_ptr(), spec.data_ptr(),
+                        tw_stage.data_ptr(), wp.data_ptr(), csp,
+                        tail.data_ptr(), out[key].data_ptr(), b, n_blocks,
+                        parsiz, lat, grids[key], stream), key)
+                return run
+
+            def old():
+                _build.check(parent.prt_fused_conv(
+                    frames.data_ptr(), spec.data_ptr(), tw_nat.data_ptr(),
+                    wp.data_ptr(), csp, tail.data_ptr(),
+                    out["parent"].data_ptr(), b, n_blocks, parsiz, lat,
+                    stream), "parent")
+
+            return out, dict(parent=old, **{k: new(k) for k in handles}), grids
+
+        def measure(label, frames, spec_c, parsiz, cs_rows=None, lat=0):
+            out, fns, grids = calls(frames, spec_c, parsiz, cs_rows, lat)
+            for fn in fns.values():
+                fn()
+            torch.cuda.synchronize()
+            diff = {k: float((out[k] - out["parent"]).abs().max())
+                    for k in out if k != "parent"}
+            order = list(fns)
+            ms = {k: 0.0 for k in order}
+            for turn in (order, order[::-1]):
+                for k in turn:
+                    ms[k] += cs.cuda_ms(fns[k], args.reps) / 2
+            mix = cs_rows is not None
+            entry = dict(
+                shape=list(frames.shape), ms=ms, max_abs_diff_vs_parent=diff,
+                grid=grids,
+                geometry={k: geometry(h, parsiz, mix)
+                          for k, h in libs.items()},
+                device_ms_by_kernel={k: cs.device_split(fns[k]) for k in libs})
+            print(f"{label}: {json.dumps(entry)} [{card}]")
+            return entry
+
+        rng = np.random.default_rng(20240917)
+        stems = torch.from_numpy(rng.standard_normal(
+            (64, 60 * 48000), dtype=np.float32)).to(dev)
+        x4 = torch.from_numpy(rng.standard_normal(
+            (2, 240 * 48000), dtype=np.float32)).to(dev)
+        for parsiz, firlen, x in ((2048, 2048, x4), (4096, 3072, stems),
+                                  (8192, 8192, x4), (16384, 16128, stems)):
+            n_f = -(-x.shape[-1] // parsiz) + 1
+            frames = torch.nn.functional.pad(
+                x, (0, n_f * parsiz - x.shape[-1])).reshape(-1, n_f, parsiz)
+            report["parsiz"][str(parsiz)] = measure(
+                f"conv parsiz {parsiz}", frames,
+                fc.hilbert_fir_spectrum(firlen, parsiz, dev), parsiz)
+            del frames
+        turns = torch.from_numpy(
+            rng.uniform(-0.5, 0.5, 64).astype(np.float32)).to(dev)
+        frames, cs_rows, spec_c, parsiz, lat = fc._rotate_operands(
+            stems, turns, 3072)
+        report["mix"] = measure(f"mix parsiz {parsiz} lat {lat}", frames,
+                                spec_c, parsiz, cs_rows.contiguous(), lat)
+        worst = max(max(e["max_abs_diff_vs_parent"].values())
+                    for e in [*report["parsiz"].values(), report["mix"]])
+        report["bit_identical"] = worst == 0.0
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump(report, f, indent=1)
+        print(json.dumps(report))
+    return 0 if report["bit_identical"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -58,8 +58,9 @@ Protocol (all little-endian, fixed 8-byte header ``u32 type, u32 len``):
 
 Run:  python -m phaserotate_tpu_torch.bridge --socket /tmp/phaserotate_tpu.sock
 
-Sessions run on the CUDA devices (round-robin over ``--devices``) unless
-the CPU is asked for (``--device cpu``, ``serve(..., device="cpu")``);
+Sessions run on the CUDA devices (round-robin over ``--devices`` cards,
+from the one ``--device cuda:N`` names, else from card 0) unless the CPU
+is asked for (``--device cpu``, ``serve(..., device="cpu")``);
 without a card and without that request, ``serve`` raises and ``main``
 prints one error line and exits 1.
 """
@@ -584,19 +585,26 @@ class DevicePool:
     analogue of an LV2 host instantiating plugins freely
     (src/phaserotate.c:860-893) across a host's cards.
 
-    The pool spreads over ``n_devices`` of ``torch.cuda.device_count()``
-    cards (0 = all); ``assign`` gives a card's index, the plugin's
-    ``device`` option.  With ``device="cpu"`` it is one CPU entry and
+    The pool spreads over ``n_devices`` consecutive cards (0 = all), from
+    the index ``device`` names (``"cuda:1"``: cards 1, 2, ...; ``"cuda"``
+    or ``None``: from card 0); ``assign`` gives a card's index, the
+    plugin's ``device`` option.  A named index the host does not have
+    raises ``ValueError``.  With ``device="cpu"`` it is one CPU entry and
     ``assign`` gives ``"cpu"``.  Without a card and without that, it
     raises."""
 
     def __init__(self, n_devices: int = 1, device=None):
-        if resolve_device(device).type == "cpu":
+        dev = resolve_device(device)
+        if dev.type == "cpu":
             self.targets = ["cpu"]
         else:
-            avail = torch.cuda.device_count()
+            first = dev.index or 0
+            avail = torch.cuda.device_count() - first
+            if avail <= 0:
+                raise ValueError(f"device {dev} out of range "
+                                 f"({torch.cuda.device_count()} available)")
             n = max(1, min(n_devices if n_devices > 0 else avail, avail))
-            self.targets = list(range(n))
+            self.targets = list(range(first, first + n))
         self.n = len(self.targets)
         self.locks = [threading.Lock() for _ in range(self.n)]
         self._next = 0
@@ -911,15 +919,17 @@ def main(argv=None, device=None) -> int:
                     help="spread sessions round-robin over this many "
                          "CUDA devices (0 = all available)")
     ap.add_argument("--device", default=None,
-                    help="where the sessions run: cuda (the default) or "
-                         "cpu")
+                    help="where the sessions run: cuda (the default, "
+                         "from card 0), cuda:N (from card N) or cpu")
     ap.add_argument("--ready-fd", type=int, default=None,
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     try:
         pool_device = resolve_device(device if device is not None
                                      else args.device)
-    except RuntimeError as e:
+        # a card the host lacks is refused here, before the socket
+        DevicePool(args.devices, device=pool_device)
+    except (RuntimeError, ValueError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
     print(f"phaserotate_tpu_torch bridge: listening on {args.socket}",

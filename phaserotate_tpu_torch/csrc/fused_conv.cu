@@ -18,10 +18,12 @@
 // O(parsiz^2) per frame (~1e9 FMA at parsiz 16384), so each frame gets a
 // real FFT: about 2 * 5 * M * log2(M) FP32 operations for M = parsiz
 // (forward and inverse), some 140 operations per sample at 16384, against
-// 24 bytes of HBM traffic per sample over both passes.  Within a block
-// every radix-2 stage reads and writes the whole frame in shared memory,
-// so bank conflicts cost directly; the layout below has none, and what
-// remains largest on an H100 is the pass twiddles' __ldg reads (PERF.md).
+// the 8 bytes of HBM traffic per sample the function needs (read x, write
+// h).  Within a block every radix-2 stage reads and writes the whole frame
+// in shared memory, so bank conflicts and the pass twiddles' reads cost
+// directly; the layout below has no bank conflict, and the twiddles are
+// read as one contiguous float4 per butterfly from a table in shared
+// memory.
 //
 // What the design does about it:
 //   - The N-point real input is zero in its upper half, so its rfft is one
@@ -61,15 +63,33 @@
 //     into the same order by the wrapper, so the global reads stay
 //     coalesced.  No operation of the product changes, only which thread
 //     does it.
-//   - Twiddles W_N^i = e^{-2*pi*j*i/N}, i < M, are one float32 table
-//     computed in float64 on the host and read through __ldg; W_M^i is
-//     W_N^{2i}, and the quarter-turn factors are exact swaps.
+//   - The pass twiddles are stage-major: for each radix-4 pass of span h
+//     (h = M/2, M/8, ..., the forward pass order), the float4
+//     {W_2h^j, W_h^j} for j < h/2, the pass of span h from entry
+//     (M - 2h)/3, (M - 1)/3 entries in all (87,376 bytes at parsiz 16384).
+//     W_N^i = e^{-2*pi*j*i/N} are computed in float64 on the host and
+//     copied into the table as float32 by the wrapper; the inverse reads
+//     the same entries conjugated, and the quarter-turn factors are exact
+//     swaps.  Butterfly g of a pass reads entry j = g mod h/2, so a warp
+//     reads 32 consecutive float4 (or fewer, repeated): one request of 512
+//     contiguous bytes.  A strided read of a natural-order table would
+//     touch up to 32 lines per request.  Each block copies the table into
+//     shared memory once, after its frame; every read is then one
+//     wavefront per quarter-warp.
 //   - The TPU carried the overlap-add tail in scratch along a sequential
-//     grid axis; blocks here run in no order.  Pass 1 (one block per
-//     frame, rows * frames on gridDim.x) writes each frame's head into the
-//     output and its tail to a scratch buffer; pass 2, elementwise, adds
-//     tail[f-1] and applies the mix, rounding cos*dry + sin*h with
-//     __fmul_rn / __fadd_rn as the plain PyTorch version does.
+//     grid axis; here a persistent grid (as many blocks as fit on the
+//     card at once) gives each block one contiguous run of frames in
+//     flattened (row, frame) order, which it transforms one after the
+//     other.  In the copy-out, the thread that writes float4 i of a frame's
+//     head adds float4 i of the previous frame's tail, which it holds in
+//     registers (the carry, p4 / blockDim float4 a thread), so h leaves
+//     the block finished.  A row's first frame has no tail before it, and
+//     a row's last tail is dropped.  Only the first frame of a run lacks
+//     the tail of the run before it: each block writes its last tail to a
+//     small scratch (one frame per block), and a second kernel adds it to
+//     those frames alone.  The mix, cos*dry + sin*h with __fmul_rn /
+//     __fadd_rn as the plain PyTorch version rounds it, is applied where
+//     h is finished: in the copy-out, or in that second kernel.
 //   - The imaginary parts of the DC and Nyquist bins of the product are
 //     dropped, as irfft discards them.  All arithmetic is FP32: no TF32,
 //     no fast math.
@@ -78,6 +98,7 @@
 
 namespace {
 
+constexpr int kMinLog2M = 11;  // parsiz 2048
 constexpr int kMaxLog2M = 14;  // parsiz 16384: 128 KiB of shared memory
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
@@ -113,26 +134,34 @@ __device__ __forceinline__ float4 pair_order(float4 v, int s) {
   return (s & 1) ? make_float4(v.z, v.w, v.x, v.y) : v;
 }
 
-// W_M^(j * M / (2h)) for the radix-2 span h: table index j * M / h of W_N.
-__device__ __forceinline__ float2 stage_tw(const float2* tw, int j,
-                                           int log2m, int log2h) {
-  return __ldg(tw + (j << (log2m - log2h)));
+// The first entry of the radix-4 pass of span h in the stage-major
+// twiddle table: the passes before it, of spans M/2, M/8, ..., 4h, hold
+// half their span each, (M - 2h)/3 entries together.
+__device__ __forceinline__ int pass_offset(int m, int log2h) {
+  return (m - (2 << log2h)) / 3;
+}
+
+// Entries of the stage-major table: (M - 1) / 3 for every supported M.
+__host__ __device__ __forceinline__ int table_len(int m) {
+  return (m - 1) / 3;
 }
 
 // Forward (decimation in frequency): spans M/2, M/4, ..., 1.
-__device__ void fft_dif(float2* z, const float2* tw, int log2m) {
+__device__ void fft_dif(float2* z, const float4* tws, int log2m) {
   const int m = 1 << log2m;
   int log2h = log2m - 1;
   for (; log2h >= 1; log2h -= 2) {  // spans h and h/2 in one pass
     const int h = 1 << log2h, q = h >> 1;
+    const float4* tw = tws + pass_offset(m, log2h);
     for (int g = threadIdx.x; g < (m >> 2); g += blockDim.x) {
       const int j = g & (q - 1);
       const int p0 = ((g >> (log2h - 1)) << (log2h + 1)) + j;
       const int p1 = p0 + q, p2 = p0 + h, p3 = p2 + q;
       const float2 a0 = z[slot(p0)], a1 = z[slot(p1)], a2 = z[slot(p2)],
                    a3 = z[slot(p3)];
-      const float2 wa = stage_tw(tw, j, log2m, log2h);      // W_2h^j
-      const float2 wc = stage_tw(tw, 2 * j, log2m, log2h);  // W_h^j
+      const float4 t = tw[j];
+      const float2 wa = make_float2(t.x, t.y);  // W_2h^j
+      const float2 wc = make_float2(t.z, t.w);  // W_h^j
       const float2 s0 = cadd(a0, a2), d0 = cmul(csub(a0, a2), wa);
       // W_2h^(j + h/2) = -j * W_2h^j
       const float2 s1 = cadd(a1, a3), d1 = cmul(mul_mj(csub(a1, a3)), wa);
@@ -154,7 +183,7 @@ __device__ void fft_dif(float2* z, const float2* tw, int log2m) {
 }
 
 // Inverse, unnormalized (decimation in time): spans 1, 2, ..., M/2.
-__device__ void ifft_dit(float2* z, const float2* tw, int log2m) {
+__device__ void ifft_dit(float2* z, const float4* tws, int log2m) {
   const int m = 1 << log2m;
   int log2h = 1;  // the larger span of the next pass
   if (log2m & 1) {  // odd log2(M): the first span-1 stage alone
@@ -168,14 +197,16 @@ __device__ void ifft_dit(float2* z, const float2* tw, int log2m) {
   }
   for (; log2h < log2m; log2h += 2) {  // spans h/2 then h in one pass
     const int h = 1 << log2h, q = h >> 1;
+    const float4* tw = tws + pass_offset(m, log2h);
     for (int g = threadIdx.x; g < (m >> 2); g += blockDim.x) {
       const int j = g & (q - 1);
       const int p0 = ((g >> (log2h - 1)) << (log2h + 1)) + j;
       const int p1 = p0 + q, p2 = p0 + h, p3 = p2 + q;
       const float2 a0 = z[slot(p0)], a1 = z[slot(p1)], a2 = z[slot(p2)],
                    a3 = z[slot(p3)];
-      const float2 wa = conj(stage_tw(tw, j, log2m, log2h));
-      const float2 wc = conj(stage_tw(tw, 2 * j, log2m, log2h));
+      const float4 t = tw[j];
+      const float2 wa = conj(make_float2(t.x, t.y));
+      const float2 wc = conj(make_float2(t.z, t.w));
       const float2 t1 = cmul(a1, wc), t3 = cmul(a3, wc);
       const float2 s0 = cadd(a0, t1), s1 = csub(a0, t1);
       const float2 s2 = cadd(a2, t3), s3 = csub(a2, t3);
@@ -247,102 +278,227 @@ __device__ void spectrum_product(float2* z, const float2* h,
   __syncthreads();
 }
 
-// Pass 1: one block per frame.  head (the output buffer) gets y_f[0, P),
-// tail gets y_f[P, 2P).
+// Frame f0 of the run of block b of ``grid`` over n_frames frames: runs
+// differ by at most one frame.
+__device__ __forceinline__ long long run_start(long long b,
+                                               long long n_frames,
+                                               long long grid) {
+  return (b * n_frames) / grid;
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+
+// ca * dry + sa * h, each product and the sum rounded on its own
+__device__ __forceinline__ float mix1(float2 c, float dry, float h) {
+  return __fadd_rn(__fmul_rn(c.x, dry), __fmul_rn(c.y, h));
+}
+
+__device__ __forceinline__ float4 mix4(float2 c, float4 dry, float4 h) {
+  return make_float4(mix1(c, dry.x, h.x), mix1(c, dry.y, h.y),
+                     mix1(c, dry.z, h.z), mix1(c, dry.w, h.w));
+}
+
+// The overlap-add over one contiguous run of frames per block; frame f
+// is row f / n_blocks, block f % n_blocks of its row.  Each thread owns
+// float4 i = threadIdx.x + k * blockDim.x, k < kCarry, of every frame's
+// head and tail (blockDim * kCarry = parsiz / 4), in the copy-in and in
+// the copy-out alike, so the copy-in of the next frame overwrites only
+// the slots this thread has just read and needs no barrier.  The last
+// tail of a run whose next frame is not a row's first goes to
+// run_tails[blockIdx.x]; that frame's head leaves unfinished, for
+// ola_fixup.
+template <int kCarry, bool kMix>
 __global__ void __launch_bounds__(1024)
-ola_frames(const float* __restrict__ frames, const float2* __restrict__ h,
-           const float2* __restrict__ tw, const float2* __restrict__ wp,
-           float* __restrict__ head, float* __restrict__ tail, int log2m) {
+ola_runs(const float* __restrict__ frames, const float2* __restrict__ h,
+         const float4* __restrict__ twiddles, const float2* __restrict__ wp,
+         const float2* __restrict__ cs, float* __restrict__ run_tails,
+         float* __restrict__ out, long long n_frames, int n_blocks,
+         int lat, int log2m) {
   extern __shared__ float4 smem4[];
   float2* z = reinterpret_cast<float2*>(smem4);
   const int m = 1 << log2m;     // complex points = parsiz
   const int p4 = m >> 2;        // float4s per frame of parsiz floats
-  const long long f = blockIdx.x;
-  const float4* src = reinterpret_cast<const float4*>(frames) + f * p4;
-  for (int i = threadIdx.x; i < p4; i += blockDim.x) {
-    const int s = slot(2 * i);  // z[n] = (x[2n], x[2n+1])
-    smem4[s >> 1] = pair_order(__ldg(src + i), s);
-    // the zero half: slot() maps it onto itself
-    smem4[p4 + i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4* tws = smem4 + (m >> 1);  // the twiddle table after the frame
+  for (int i = threadIdx.x; i < table_len(m); i += blockDim.x) {
+    tws[i] = __ldg(twiddles + i);
   }
-  __syncthreads();
-  fft_dif(z, tw, log2m);
-  spectrum_product(z, h, wp, log2m);
-  ifft_dit(z, tw, log2m);
-  float4* dh = reinterpret_cast<float4*>(head) + f * p4;
-  float4* dt = reinterpret_cast<float4*>(tail) + f * p4;
-  for (int i = threadIdx.x; i < p4; i += blockDim.x) {
-    const int s = slot(2 * i), st = slot(2 * (p4 + i));
-    dh[i] = pair_order(smem4[s >> 1], s);
-    dt[i] = pair_order(smem4[st >> 1], st);
+  const long long f0 = run_start(blockIdx.x, n_frames, gridDim.x);
+  const long long f1 = run_start(blockIdx.x + 1, n_frames, gridDim.x);
+  const float4* src = reinterpret_cast<const float4*>(frames);
+  float4* dst = reinterpret_cast<float4*>(out);
+  float4 carry[kCarry];
+  for (long long f = f0; f < f1; ++f) {
+    const long long row = f / n_blocks;
+    const long long s0 = (f - row * n_blocks) * m;  // sample in the row
+#pragma unroll
+    for (int k = 0; k < kCarry; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      const int s = slot(2 * i), st = slot(2 * (p4 + i));
+      // z[n] = (x[2n], x[2n+1]), and the zero half in the slots of the tail
+      smem4[s >> 1] = pair_order(__ldg(src + f * p4 + i), s);
+      smem4[st >> 1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    __syncthreads();
+    fft_dif(z, tws, log2m);
+    spectrum_product(z, h, wp, log2m);
+    ifft_dit(z, tws, log2m);
+    const bool has_carry = f != f0 && s0 != 0;
+    const bool done = has_carry || s0 == 0;  // else ola_fixup finishes it
+    const float2 c = kMix ? cs[row] : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int k = 0; k < kCarry; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      const int s = slot(2 * i), st = slot(2 * (p4 + i));
+      float4 v = pair_order(smem4[s >> 1], s);
+      if (has_carry) v = add4(v, carry[k]);
+      if (kMix && done) {
+        // dry = x[s - lat], zeros before the row's start (lat % 4 == 0)
+        const float4 dry = s0 + 4 * i >= lat
+                               ? __ldg(src + f * p4 + i - (lat >> 2))
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+        v = mix4(c, dry, v);
+      }
+      dst[f * p4 + i] = v;
+      carry[k] = pair_order(smem4[st >> 1], st);
+    }
+  }
+  if (f1 < n_frames && f1 % n_blocks != 0) {
+    float4* keep = reinterpret_cast<float4*>(run_tails) +
+                   static_cast<long long>(blockIdx.x) * p4;
+#pragma unroll
+    for (int k = 0; k < kCarry; ++k) {
+      keep[threadIdx.x + k * blockDim.x] = carry[k];
+    }
   }
 }
 
-// Pass 2: h = head + tail of the frame before; conv mode writes h, mix
-// mode ca * x[m - lat] + sa * h.  In place over head.
+// The first frame of run b = blockIdx.x + 1, where it is not a row's
+// first: h = head + the tail of run b - 1's last frame, then the mix.
 template <bool kMix>
-__global__ void ola_mix(const float* __restrict__ frames,
-                        const float* __restrict__ tail,
-                        const float2* __restrict__ cs, float* out,
-                        int rows, long long row_len, int parsiz, int lat) {
-  const long long total = static_cast<long long>(rows) * row_len;
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < total; i += step) {
-    const long long r = i / row_len, s = i - r * row_len;
-    float h = out[i];
-    if (s >= parsiz) h = __fadd_rn(h, tail[i - parsiz]);
-    if (kMix) {
-      const float dry = s >= lat ? frames[i - lat] : 0.f;
-      const float2 c = cs[r];
-      h = __fadd_rn(__fmul_rn(c.x, dry), __fmul_rn(c.y, h));
-    }
-    out[i] = h;
+__global__ void ola_fixup(const float* __restrict__ frames,
+                          const float* __restrict__ run_tails,
+                          const float2* __restrict__ cs, float* out,
+                          long long n_frames, int n_blocks, int parsiz,
+                          int lat) {
+  const long long f = run_start(blockIdx.x + 1, n_frames, gridDim.x + 1);
+  if (f % n_blocks == 0) return;
+  const float* tail = run_tails + static_cast<long long>(blockIdx.x) * parsiz;
+  for (int m = threadIdx.x; m < parsiz; m += blockDim.x) {
+    const long long i = f * parsiz + m;
+    float v = __fadd_rn(out[i], tail[m]);
+    if (kMix) v = mix1(cs[f / n_blocks], frames[i - lat], v);  // lat < parsiz
+    out[i] = v;
   }
+}
+
+using RunKernel = void (*)(const float*, const float2*, const float4*,
+                           const float2*, const float2*, float*, float*,
+                           long long, int, int, int);
+
+int log2_supported(int parsiz) {
+  int log2m = 0;
+  while ((1 << log2m) < parsiz) ++log2m;
+  if ((1 << log2m) != parsiz || log2m < kMinLog2M || log2m > kMaxLog2M) {
+    return -1;
+  }
+  return log2m;
+}
+
+// Threads per block: parsiz / 8 within [256, 1024], so parsiz / 4 float4
+// are 2 a thread below 16384 and 4 at 16384.
+int block_threads(int parsiz) {
+  const int t = parsiz / 8;
+  return t < 256 ? 256 : (t > 1024 ? 1024 : t);
+}
+
+// The run kernel of one parsiz and mode, with its shared memory (frame
+// and twiddle table) allowed.
+cudaError_t run_kernel(int log2m, bool mix, RunKernel* fn, size_t* smem) {
+  const int m = 1 << log2m;
+  const bool wide = m / 4 / block_threads(m) == 4;
+  *fn = mix ? (wide ? ola_runs<4, true> : ola_runs<2, true>)
+            : (wide ? ola_runs<4, false> : ola_runs<2, false>);
+  *smem = static_cast<size_t>(m) * sizeof(float2) +
+          static_cast<size_t>(table_len(m)) * sizeof(float4);
+  return cudaFuncSetAttribute(*fn,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*smem));
 }
 
 }  // namespace
 
+// The run kernel's launch geometry on the current device for ``parsiz``
+// and mode: info = {blocks resident on the whole card at once (the grid
+// of a persistent launch), threads per block, registers per thread,
+// local memory bytes per thread (spills)}.
+extern "C" int prt_fused_conv_grid(int parsiz, int mix, int* info) {
+  const int log2m = log2_supported(parsiz);
+  if (log2m < 0) return static_cast<int>(cudaErrorInvalidValue);
+  RunKernel fn;
+  size_t smem;
+  cudaError_t err = run_kernel(log2m, mix != 0, &fn, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads = block_threads(parsiz);
+  int per_sm = 0, device = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
+                                                      smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  }
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = per_sm * sms;
+  info[1] = threads;
+  info[2] = attr.numRegs;
+  info[3] = static_cast<int>(attr.localSizeBytes);
+  return 0;
+}
+
+// frames (rows, n_blocks, parsiz); spectrum and product_twiddle in the
+// product's position order; twiddles the stage-major table; cs (rows, 2)
+// (ca, sa) or NULL for conv mode; run_tails (grid - 1, parsiz) scratch;
+// out (rows, n_blocks * parsiz); grid in [1, rows * n_blocks] blocks, each
+// one run of frames (the card's resident blocks for speed: any grid gives
+// the same output).
 extern "C" int prt_fused_conv(const float* frames, const float* spectrum,
-                              const float* twiddle,
+                              const float* twiddles,
                               const float* product_twiddle, const float* cs,
-                              float* tail, float* out, int rows,
-                              int n_blocks, int parsiz, int lat,
+                              float* run_tails, float* out, int rows,
+                              int n_blocks, int parsiz, int lat, int grid,
                               void* stream) {
   if (rows <= 0 || n_blocks <= 0) return 0;
-  int log2m = 0;
-  while ((1 << log2m) < parsiz) ++log2m;
-  if ((1 << log2m) != parsiz || log2m < 4 || log2m > kMaxLog2M) {
+  const int log2m = log2_supported(parsiz);
+  const long long n_frames = static_cast<long long>(rows) * n_blocks;
+  if (log2m < 0 || n_frames > 0x7fffffffLL || grid < 1 || grid > n_frames ||
+      lat < 0 || lat >= parsiz || (lat & 3) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long n_frames = static_cast<long long>(rows) * n_blocks;
-  if (n_frames > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = static_cast<size_t>(parsiz) * sizeof(float2);
-  cudaError_t err = cudaFuncSetAttribute(
-      ola_frames, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const bool mix = cs != nullptr;
+  RunKernel fn;
+  size_t smem;
+  cudaError_t err = run_kernel(log2m, mix, &fn, &smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int threads = parsiz / 8;
-  threads = threads < 256 ? 256 : (threads > 1024 ? 1024 : threads);
-  ola_frames<<<static_cast<unsigned>(n_frames), threads, smem, st>>>(
+  const float2* cs2 = reinterpret_cast<const float2*>(cs);
+  fn<<<grid, block_threads(parsiz), smem, st>>>(
       frames, reinterpret_cast<const float2*>(spectrum),
-      reinterpret_cast<const float2*>(twiddle),
-      reinterpret_cast<const float2*>(product_twiddle), out, tail, log2m);
+      reinterpret_cast<const float4*>(twiddles),
+      reinterpret_cast<const float2*>(product_twiddle), cs2, run_tails, out,
+      n_frames, n_blocks, lat, log2m);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long row_len = static_cast<long long>(n_blocks) * parsiz;
-  const long long total = rows * row_len;
-  long long blocks = (total + 255) / 256;
-  if (blocks > 132LL * 64) blocks = 132LL * 64;  // grid-stride beyond
-  if (cs != nullptr) {
-    ola_mix<true><<<static_cast<unsigned>(blocks), 256, 0, st>>>(
-        frames, tail, reinterpret_cast<const float2*>(cs), out, rows,
-        row_len, parsiz, lat);
+  if (err != cudaSuccess || grid == 1) return static_cast<int>(err);
+  if (mix) {
+    ola_fixup<true><<<grid - 1, 256, 0, st>>>(frames, run_tails, cs2, out,
+                                              n_frames, n_blocks, parsiz, lat);
   } else {
-    ola_mix<false><<<static_cast<unsigned>(blocks), 256, 0, st>>>(
-        frames, tail, nullptr, out, rows, row_len, parsiz, lat);
+    ola_fixup<false><<<grid - 1, 256, 0, st>>>(frames, run_tails, nullptr, out,
+                                               n_frames, n_blocks, parsiz, 0);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -50,11 +50,14 @@ _SIGNATURES = {
     # scratch, out, batch, n_frames, n_segm, dry delay in frames, stream
     "prt_stream_conv": (_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                         ctypes.c_int, ctypes.c_int, _P),
-    # frames, FIR spectrum in position order, pass twiddles, product
-    # twiddles, (ca, sa) per row (or NULL), tail scratch, out, rows,
-    # n_blocks, parsiz, dry delay, stream
+    # frames, FIR spectrum in position order, stage-major pass twiddles,
+    # product twiddles, (ca, sa) per row (or NULL), run tails scratch,
+    # out, rows, n_blocks, parsiz, dry delay, grid, stream
     "prt_fused_conv": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, _P),
+    # parsiz, mix, int[4] out: blocks, threads, registers, local bytes
+    "prt_fused_conv_grid": (ctypes.c_int, ctypes.c_int, _P),
     # x, n, out, stream
     "prt_peak": (_P, ctypes.c_longlong, _P, _P),
 }

@@ -12,8 +12,10 @@ plain complex64 half spectrum (:func:`hilbert_fir_spectrum`): the TPU
 kernel's ``[k1][k2]`` matrix layout has no counterpart here; the wrapper
 hands the CUDA kernel that spectrum, and the twiddles of its spectrum
 product, permuted into the order in which the kernel walks them
-(:func:`_product_tables`).  The support tables are the JAX package's, so
-dispatch is the same.
+(:func:`_product_tables`).  It also hands it the pass twiddles
+stage-major (:func:`_stage_twiddles_np`), and sizes its persistent grid
+from the card (:func:`kernel_geometry`).  The support tables are the JAX
+package's, so dispatch is the same.
 
 On a CPU tensor each wrapper runs its plain twin (``torch.fft``); on a
 CUDA tensor it launches the kernel or raises.
@@ -38,6 +40,7 @@ __all__ = [
     "fused_rotate_fir",
     "fused_rotate_fir_plain",
     "hilbert_fir_spectrum",
+    "kernel_geometry",
     "mix_supported",
     "supported_parsiz",
 ]
@@ -102,9 +105,46 @@ def _twiddles_np(parsiz: int) -> np.ndarray:
     return np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=4)
+def _stage_twiddles_np(parsiz: int) -> np.ndarray:
+    """((parsiz-1)//3, 4) float32: the kernel's pass twiddles, stage-major.
+    For each radix-4 pass of span h, in the forward transform's pass order
+    (h = parsiz/2, parsiz/8, ...), the rows ``{W_2h^j, W_h^j}`` for
+    j < h/2, from row ``(parsiz - 2h)/3``; W_2h^j = W_N^(j*M/h) and
+    W_h^j = W_N^(2j*M/h), N = 2M, M = parsiz, are copied from
+    :func:`_twiddles_np`, not recomputed."""
+    tw = _twiddles_np(parsiz)
+    log2m = parsiz.bit_length() - 1
+    parts = []
+    for log2h in range(log2m - 1, 0, -2):
+        j = np.arange(1 << (log2h - 1))
+        shift = log2m - log2h
+        parts.append(np.concatenate([tw[j << shift], tw[(2 * j) << shift]],
+                                    axis=1))
+    return np.concatenate(parts)
+
+
 @functools.lru_cache(maxsize=8)
-def _twiddles(parsiz: int, device: torch.device) -> torch.Tensor:
-    return torch.tensor(_twiddles_np(parsiz), device=device)
+def _stage_twiddles(parsiz: int, device: torch.device) -> torch.Tensor:
+    return torch.tensor(_stage_twiddles_np(parsiz), device=device)
+
+
+@functools.lru_cache(maxsize=16)
+def kernel_geometry(parsiz: int, mix: bool = False,
+                    device: torch.device | str = "cuda") -> dict:
+    """The CUDA kernel's launch on ``device`` for ``parsiz`` in conv or mix
+    mode: ``blocks`` (as many as the card holds at once: the persistent
+    grid), ``threads`` per block, ``registers`` per thread and
+    ``local_bytes`` per thread (spilled registers)."""
+    import ctypes
+
+    if not supported_parsiz(parsiz):
+        raise ValueError(f"unsupported parsiz {parsiz}")
+    info = (ctypes.c_int * 4)()
+    with torch.cuda.device(torch.device(device)):
+        _build.check(_build.lib().prt_fused_conv_grid(parsiz, int(mix), info),
+                     "fused_conv")
+    return dict(zip(("blocks", "threads", "registers", "local_bytes"), info))
 
 
 def _bitrev(i: np.ndarray, bits: int) -> np.ndarray:
@@ -179,16 +219,20 @@ def _launch(frames: torch.Tensor, spectrum: torch.Tensor, parsiz: int,
     b, n_blocks, _ = frames.shape
     frames = frames.contiguous()
     spec, wp = _product_tables(spectrum, parsiz)
-    tail = torch.empty_like(frames)
+    # one block per run of frames; each but the last leaves one tail
+    grid = min(kernel_geometry(parsiz, cs is not None, dev)["blocks"],
+               b * n_blocks)
+    run_tails = torch.empty((grid - 1, parsiz), dtype=torch.float32,
+                            device=dev)
     out = torch.empty((b, n_blocks * parsiz), dtype=torch.float32,
                       device=dev)
     lib = _build.lib()
     with torch.cuda.device(dev):  # the C launch goes to the current one
         err = lib.prt_fused_conv(
             frames.data_ptr(), spec.data_ptr(),
-            _twiddles(parsiz, dev).data_ptr(), wp.data_ptr(),
-            None if cs is None else cs.data_ptr(), tail.data_ptr(),
-            out.data_ptr(), b, n_blocks, parsiz, lat,
+            _stage_twiddles(parsiz, dev).data_ptr(), wp.data_ptr(),
+            None if cs is None else cs.data_ptr(), run_tails.data_ptr(),
+            out.data_ptr(), b, n_blocks, parsiz, lat, grid,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_conv")
     return out

@@ -7,9 +7,10 @@ convolution ``(fir * x)[m]``), so every FIR of 512..16384 taps in steps of
 256 maps onto one kernel shape with ``n_segm = fir_taps / 256`` partitions.
 
 * :func:`hilbert_small` — conv-only mode, the Hilbert half of the
-  analyzer's sweep and apply (``fused_hilbert_small``).
+  analyzer's sweep and apply (``fused_hilbert_small``, also exported
+  under that name).
 * :func:`rotate_small` — steady-angle mix mode, the FIR rotate
-  (``fused_rotate_small``).
+  (``fused_rotate_small``, also exported under that name).
 * :func:`fused_stream_mix` — mix mode with the per-sample angle ramp from
   per-frame (angle, slope) pairs, the streaming engine's whole block body
   (``fused_stream_mix``).
@@ -34,6 +35,8 @@ from .fused_conv import _bitrev
 __all__ = [
     "P",
     "fused_stream_mix",
+    "fused_hilbert_small",
+    "fused_rotate_small",
     "fused_stream_mix_plain",
     "small_conv_supported",
     "stream_mix_supported",
@@ -197,6 +200,11 @@ def rotate_small(x: torch.Tensor, turns, firlen: int) -> torch.Tensor:
     out = _launch(frames, firlen, angs)
     _build.count_launch("rotate_small")
     return out.reshape(b, n_frames * P)[:, lat : lat + n].reshape(*lead, n)
+
+
+# the JAX package's names of the two wrappers above
+fused_hilbert_small = hilbert_small
+fused_rotate_small = rotate_small
 
 
 def fused_stream_mix_plain(frames: torch.Tensor, angle_params: torch.Tensor,

@@ -616,6 +616,74 @@ def test_device_pool_and_refusal_without_a_card():
     assert not os.path.exists(path)  # refused before binding
 
 
+class _Stop(Exception):
+    pass
+
+
+def _two_cards(monkeypatch):
+    """Pretend the host has two cards; the daemon's auto-depth round trip
+    records the device it is given and stops ``serve`` before it binds."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    pools, rtt = [], []
+
+    class Pool(pb.DevicePool):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            pools.append(self)
+
+    def stop(reps=40, device=None):
+        rtt.append(pb.indexed_device(device))
+        raise _Stop
+
+    monkeypatch.setattr(pb, "DevicePool", Pool)
+    monkeypatch.setattr(pb, "measure_dispatch_rtt_stats", stop)
+    return pools, rtt
+
+
+@pytest.mark.parametrize("n_devices,device,targets", [
+    (1, "cuda:1", [1]), (0, "cuda:1", [1]), (4, torch.device("cuda", 1), [1]),
+    (1, "cuda:0", [0]), (1, None, [0]), (0, "cuda", [0, 1]),
+    (2, "cuda", [0, 1])])
+def test_device_pool_starts_at_the_named_card(monkeypatch, n_devices,
+                                              device, targets):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    pool = pb.DevicePool(n_devices, device=device)
+    assert pool.targets == targets and pool.n == len(targets)
+    assert [pool.assign()[0] for _ in range(3)] == (targets * 3)[:3]
+
+
+def test_device_pool_refuses_a_card_the_host_lacks(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(ValueError, match="cuda:2 out of range"):
+        pb.DevicePool(1, device="cuda:2")
+
+
+def test_serve_on_a_named_card(monkeypatch):
+    pools, rtt = _two_cards(monkeypatch)
+    path = os.path.join(tempfile.mkdtemp(prefix="prt"), "never.sock")
+    with pytest.raises(_Stop):
+        pb.serve(path, pipeline=-1, device="cuda:1")
+    assert pools[0].targets == [1] and pools[0].assign()[0] == 1
+    assert rtt == [torch.device("cuda", 1)]
+    assert not os.path.exists(path)
+
+
+def test_main_serves_on_the_named_card(monkeypatch, capsys):
+    pools, rtt = _two_cards(monkeypatch)
+    path = os.path.join(tempfile.mkdtemp(prefix="prt"), "never.sock")
+    with pytest.raises(_Stop):
+        pb.main(["--socket", path, "--pipeline", "-1", "--device", "cuda:1"])
+    assert pools[-1].targets == [1]
+    assert rtt == [torch.device("cuda", 1)]
+    capsys.readouterr()
+    assert pb.main(["--socket", path, "--device", "cuda:2"]) == 1
+    err = capsys.readouterr().err.strip().splitlines()
+    assert err == ["Error: device cuda:2 out of range (2 available)"]
+
+
 def test_main_without_a_card_prints_one_error_line(capsys):
     if torch.cuda.is_available():
         pytest.skip("the refusal needs a machine without a card")

@@ -288,14 +288,18 @@ def test_port_runs_without_jax():
         "assert host.process(x[:, :1024]).shape == (2, 1024)\n"
         "sock = os.path.join(d, 'e.sock')\n"
         "rfd, wfd = os.pipe()\n"
-        "threading.Thread(target=bridge.serve, args=(sock,), daemon=True,\n"
-        "                 kwargs=dict(ready_fd=wfd, device='cpu',\n"
-        "                             batch_sessions=2, pipeline=1)).start()\n"
+        "srv = threading.Thread(target=bridge.serve, args=(sock,),\n"
+        "                       daemon=True, kwargs=dict(\n"
+        "                           ready_fd=wfd, device='cpu', once=True,\n"
+        "                           batch_sessions=2, pipeline=1))\n"
+        "srv.start()\n"
         "assert os.read(rfd, 1) == b'R'\n"
         "cl = bridge.BridgeClient(sock, 48000, 2)\n"
         "assert cl.process(x[:, :1024], 35.0).shape == (2, 1024)\n"
         "assert cl.analyze(x)[0]['angle_deg'] == res.angles_deg[0]\n"
         "cl.close()\n"
+        "srv.join(120)  # the session closed: no torch work left at exit\n"
+        "assert not srv.is_alive()\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'jax' or m.startswith(('jax.', 'phaserotate_tpu.'))\n"
         "       or m == 'phaserotate_tpu']\n"

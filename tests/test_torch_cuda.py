@@ -167,6 +167,55 @@ def test_fused_conv_mix_mode(x, firlen):
     assert torch.equal(got[0], x[0])  # cos 0 = 1, sin 0 = 0 exactly
 
 
+# (rows, n_blocks) against the persistent grid of ``blocks`` blocks: every
+# frame a row's first; one row in runs of one frame; one row in runs of
+# two or three frames; more rows than blocks, runs crossing rows.  No
+# frame count but the first two is a multiple of the grid.
+RUN_SHAPES = {
+    "n_blocks_1": lambda blocks: (7, 1),
+    "one_row_runs_of_one": lambda blocks: (1, 5),
+    "one_row": lambda blocks: (1, 2 * blocks + 3),
+    "rows_beyond_grid": lambda blocks: (blocks + 5, 3),
+}
+
+
+@pytest.mark.parametrize("case", list(RUN_SHAPES))
+@pytest.mark.parametrize("parsiz", [2048, 4096, 8192, 16384])
+def test_fused_conv_runs_conv_mode(dev, parsiz, case):
+    """The persistent grid's runs, carries and fix-up against the plain
+    twin at chip_smoke.py's budgets."""
+    geo = fc.kernel_geometry(parsiz, False, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert geo["blocks"] >= sms and geo["local_bytes"] == 0, geo
+    rows, n_blocks = RUN_SHAPES[case](geo["blocks"])
+    rng = np.random.default_rng(parsiz + rows)
+    frames = torch.from_numpy(rng.standard_normal(
+        (rows, n_blocks, parsiz)).astype(np.float32)).to(dev)
+    spec = fc.hilbert_fir_spectrum(parsiz - 1024, parsiz, dev)
+    got = fc.fused_ola_conv(frames, spec, parsiz)
+    want = fc.fused_ola_conv_plain(frames, spec, parsiz)
+    tol = 3e-6 if parsiz <= 4096 else 1e-5
+    assert (got - want).abs().max().item() < tol
+
+
+@pytest.mark.parametrize("case", list(RUN_SHAPES))
+@pytest.mark.parametrize("firlen", [1024, 3072, 8192, 16384])
+def test_fused_conv_runs_mix_mode(dev, firlen, case):
+    parsiz = fc.fused_parsiz_for(firlen)
+    geo = fc.kernel_geometry(parsiz, True, dev)
+    assert geo["local_bytes"] == 0, geo
+    rows, n_blocks = RUN_SHAPES[case](geo["blocks"])
+    n = n_blocks * parsiz - firlen // 2  # n_blocks frames cover n + lat
+    rng = np.random.default_rng(firlen + rows)
+    x = torch.from_numpy(rng.standard_normal((rows, n)).astype(
+        np.float32)).to(dev)
+    turns = torch.from_numpy(rng.uniform(-0.5, 0.5, rows).astype(
+        np.float32)).to(dev)
+    got = fc.fused_rotate_fir(x, turns, firlen)
+    want = fc.fused_rotate_fir_plain(x, turns, firlen)
+    assert (got - want).abs().max().item() < 2e-5
+
+
 def test_peak_kernel_bit_equal(dev):
     rng = np.random.default_rng(11)
     big = torch.from_numpy(

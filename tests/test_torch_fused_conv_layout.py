@@ -1,19 +1,26 @@
-"""The shared-memory layout of csrc/fused_conv.cu ``ola_frames``, on the CPU.
+"""The layout and scheduling of csrc/fused_conv.cu ``ola_runs``, on the CPU.
 
-A numpy float32 emulation of pass 1 (copy in, ``fft_dif``,
-``spectrum_product``, ``ifft_dit``, copy out) plus the overlap-add of
-pass 2, written with the kernel's own index formulas (``p0``, ``j``,
-``stage_tw``, ``slot``, the position-order product walk) and the permuted
-tables that the wrapper builds (``_product_tables``).  Every shared-memory
-access is logged, so the same run gives
+A numpy float32 emulation of one frame's work (copy in, ``fft_dif``,
+``spectrum_product``, ``ifft_dit``, copy out), written with the kernel's
+own index formulas (``p0``, ``j``, ``pass_offset``, ``slot``, the
+position-order product walk) and the tables that the wrapper builds
+(``_product_tables``, the stage-major pass twiddles
+``_stage_twiddles_np``); then the overlap-add of the kernel's persistent
+grid (``run_start``, the carry, one tail per run, ``ola_fixup``).  Every
+shared-memory access and every twiddle read is logged, so the same run
+gives
 
 - the output, held against the plain twin ``fused_ola_conv_plain`` at the
-  budgets of tests/test_torch_cuda.py;
+  budgets of tests/test_torch_cuda.py, and bit for bit against the same
+  emulation reading the natural-order twiddle table as the earlier kernel did
+  (``stage_tw``) and overlapping in two passes;
 - the bank-conflict count under Hopper's model: 32 four-byte banks, a
   64-bit access served per half-warp (16 bank pairs, index mod 16), a
   128-bit access per quarter-warp (8 bank quads); a wavefront serves one
   distinct address per bank pair (quad), so a request costs the largest
-  number of distinct addresses in any one of them.
+  number of distinct addresses in any one of them;
+- the 128-byte lines each warp's twiddle read touches, were the table
+  read from global memory.
 
 Threads walk items ``g = threadIdx.x + it * blockDim.x`` with blockDim a
 multiple of 32, so one warp instruction covers the 32 aligned items
@@ -39,11 +46,13 @@ def slot(i):
 
 class Smem:
     """One frame batch in shared memory: (frames, M, 2) float32 in slot
-    order, with a log of (items, addresses, bytes) per access."""
+    order, with a log of (items, addresses, bytes) per access, and a log
+    of (items, byte addresses, bytes) per read of the pass twiddles."""
 
     def __init__(self, n_frames: int, m: int):
         self.z = np.zeros((n_frames, m, 2), np.float32)
         self.log = []
+        self.twlog = []
 
     def load(self, items, i):
         s = slot(i)
@@ -81,8 +90,51 @@ def mul_pj(a):
 
 
 def stage_tw(tw, j, log2m, log2h):
+    """The earlier read: W_M^(j * M / (2h)), row j * M / h of the natural-order
+    table W_N^i, i < M."""
     t = tw[j << (log2m - log2h)]
     return t[:, 0], t[:, 1]
+
+
+def pass_offset(m, log2h):
+    return (m - (2 << log2h)) // 3
+
+
+def table_len(m):
+    return (m - 1) // 3
+
+
+def run_start(b, n_frames, grid):
+    return (b * n_frames) // grid
+
+
+class NaturalTwiddles:
+    """The pass twiddles as the earlier kernel read them: two strided reads of
+    the natural-order table per butterfly."""
+
+    def __init__(self, tw):
+        self.tw = tw
+
+    def pass_pair(self, sm, g, j, log2m, log2h):
+        for jj in (j, 2 * j):  # byte addresses of float2 rows
+            sm.twlog.append((g, (jj << (log2m - log2h)) * 8, 8))
+        return (stage_tw(self.tw, j, log2m, log2h),
+                stage_tw(self.tw, 2 * j, log2m, log2h))
+
+
+class StageTwiddles:
+    """The pass twiddles as ``ola_runs`` reads them: row
+    ``pass_offset(M, log2h) + j`` of the stage-major table, one float4
+    {W_2h^j, W_h^j}, logged."""
+
+    def __init__(self, table):
+        self.table = table
+
+    def pass_pair(self, sm, g, j, log2m, log2h):
+        row = pass_offset(1 << log2m, log2h) + j
+        sm.twlog.append((g, row * 16, 16))
+        t = self.table[row]
+        return (t[:, 0], t[:, 1]), (t[:, 2], t[:, 3])
 
 
 def radix4_indices(m, log2h):
@@ -106,8 +158,7 @@ def fft_dif(sm, tw, log2m):
     while log2h >= 1:
         g, j, p = radix4_indices(m, log2h)
         a0, a1, a2, a3 = (sm.load(g, pi) for pi in p)
-        wa = stage_tw(tw, j, log2m, log2h)
-        wc = stage_tw(tw, 2 * j, log2m, log2h)
+        wa, wc = tw.pass_pair(sm, g, j, log2m, log2h)
         s0, d0 = cadd(a0, a2), cmul(csub(a0, a2), wa)
         s1, d1 = cadd(a1, a3), cmul(mul_mj(csub(a1, a3)), wa)
         sm.store(g, p[0], cadd(s0, s1))
@@ -128,8 +179,7 @@ def ifft_dit(sm, tw, log2m):
     while log2h < log2m:
         g, j, p = radix4_indices(m, log2h)
         a0, a1, a2, a3 = (sm.load(g, pi) for pi in p)
-        wa = conj(stage_tw(tw, j, log2m, log2h))
-        wc = conj(stage_tw(tw, 2 * j, log2m, log2h))
+        wa, wc = (conj(w) for w in tw.pass_pair(sm, g, j, log2m, log2h))
         t1, t3 = cmul(a1, wc), cmul(a3, wc)
         s0, s1 = cadd(a0, t1), csub(a0, t1)
         s2, s3 = cadd(a2, t3), csub(a2, t3)
@@ -175,39 +225,109 @@ def pair_order(v, s):
     return np.where((s & 1)[None, :, None], v[..., [2, 3, 0, 1]], v)
 
 
-def ola_frames(frames: np.ndarray, h: np.ndarray, wp: np.ndarray,
-               tw: np.ndarray):
-    """Pass 1 over (F, parsiz) frames: (head, tail, access log)."""
+def ola_frames(frames: np.ndarray, h: np.ndarray, wp: np.ndarray, tw):
+    """One frame's work over (F, parsiz) frames, every frame alike:
+    (head, tail, Smem with its logs).  ``tw`` reads the pass twiddles
+    (:class:`StageTwiddles` as the kernel does)."""
     n_frames, m = frames.shape
     log2m = m.bit_length() - 1
     p4 = m >> 2
     sm = Smem(n_frames, m)
     smem4 = sm.z.reshape(n_frames, m // 2, 4)  # a view: float4 slots
     i = np.arange(p4)
-    s = slot(2 * i)
+    s, st = slot(2 * i), slot(2 * (p4 + i))
     smem4[:, s >> 1] = pair_order(frames.reshape(n_frames, p4, 4), s)
-    smem4[:, p4 + i] = 0.0
-    sm.log += [(i, s >> 1, 16), (i, p4 + i, 16)]
+    smem4[:, st >> 1] = 0.0  # the zero half: the slots this thread reads
+    sm.log += [(i, s >> 1, 16), (i, st >> 1, 16)]
     fft_dif(sm, tw, log2m)
     spectrum_product(sm, h, wp, m)
     ifft_dit(sm, tw, log2m)
-    st = slot(2 * (p4 + i))
     head = pair_order(smem4[:, s >> 1], s).reshape(n_frames, m)
     tail = pair_order(smem4[:, st >> 1], st).reshape(n_frames, m)
     sm.log += [(i, s >> 1, 16), (i, st >> 1, 16)]
-    return head, tail, sm.log
+    return head, tail, sm
+
+
+def _tables(spectrum, parsiz):
+    return tuple(t.numpy() for t in fc._product_tables(spectrum, parsiz))
 
 
 def emulated_ola_conv(frames: np.ndarray, spectrum: torch.Tensor,
                       parsiz: int) -> np.ndarray:
-    """Both passes: (B, n_blocks, parsiz) -> (B, n_blocks*parsiz)."""
+    """Every frame, then the overlap-add in a second pass over the whole
+    stream, as the earlier kernel did: (B, n_blocks, parsiz) ->
+    (B, n_blocks*parsiz)."""
     b, n_blocks, _ = frames.shape
-    h, wp = (t.numpy() for t in fc._product_tables(spectrum, parsiz))
-    head, tail, _ = ola_frames(frames.reshape(-1, parsiz), h, wp,
-                               fc._twiddles_np(parsiz))
+    head, tail, _ = ola_frames(
+        frames.reshape(-1, parsiz), *_tables(spectrum, parsiz),
+        StageTwiddles(fc._stage_twiddles_np(parsiz)))
     head = head.reshape(b, n_blocks, parsiz)
     head[:, 1:] += tail.reshape(b, n_blocks, parsiz)[:, :-1]
     return head.reshape(b, n_blocks * parsiz)
+
+
+def two_pass_mix(frames, h, cs, lat):
+    """The earlier second pass in mix mode: ``ca * x[m - lat] + sa * h``, each
+    product and the sum rounded to float32, zeros before a row's start."""
+    b = frames.shape[0]
+    x = frames.reshape(b, -1)
+    dry = np.zeros_like(x)
+    dry[:, lat:] = x[:, : x.shape[1] - lat]
+    return cs[:, :1] * dry + cs[:, 1:] * h
+
+
+def emulated_runs(frames: np.ndarray, spectrum: torch.Tensor, parsiz: int,
+                  grid: int, cs=None, lat: int = 0) -> np.ndarray:
+    """``ola_runs`` on ``grid`` blocks, then ``ola_fixup``, with the
+    kernel's run bounds, carry, dry index and tail scratch, over float4s
+    (B, n_blocks, parsiz) -> (B, n_blocks*parsiz); ``cs`` (B, 2) (ca, sa)
+    for mix mode."""
+    b, n_blocks, _ = frames.shape
+    n_frames, p4 = b * n_blocks, parsiz // 4
+    head, tail, _ = ola_frames(
+        frames.reshape(-1, parsiz), *_tables(spectrum, parsiz),
+        StageTwiddles(fc._stage_twiddles_np(parsiz)))
+    head4 = head.reshape(n_frames, p4, 4)
+    tail4 = tail.reshape(n_frames, p4, 4)
+    src = frames.reshape(-1, 4)  # the input as float4s
+    out = np.full((n_frames * p4, 4), np.nan, np.float32)
+    run_tails = np.full((max(grid - 1, 1), p4, 4), np.nan, np.float32)
+    i = np.arange(p4)
+    for blk in range(grid):
+        f0 = run_start(blk, n_frames, grid)
+        f1 = run_start(blk + 1, n_frames, grid)
+        assert f1 > f0, "every run holds a frame"
+        carry = None
+        for f in range(f0, f1):
+            row = f // n_blocks
+            s0 = (f - row * n_blocks) * parsiz
+            has_carry = f != f0 and s0 != 0
+            done = has_carry or s0 == 0
+            v = head4[f]
+            if has_carry:
+                v = v + carry
+            if cs is not None and done:
+                before = s0 + 4 * i < lat
+                dry = src[np.where(before, 0, f * p4 + i - lat // 4)]
+                dry[before] = 0.0
+                v = cs[row, 0] * dry + cs[row, 1] * v
+            out[f * p4 + i] = v
+            carry = tail4[f]
+        if f1 < n_frames and f1 % n_blocks != 0:
+            run_tails[blk] = carry
+    out = out.reshape(-1)
+    x = frames.reshape(-1)
+    for blk in range(grid - 1):  # ola_fixup: block blk, run blk + 1
+        f = run_start(blk + 1, n_frames, grid)
+        if f % n_blocks == 0:
+            continue
+        idx = f * parsiz + np.arange(parsiz)
+        v = out[idx] + run_tails[blk].reshape(-1)
+        if cs is not None:
+            c = cs[f // n_blocks]
+            v = c[0] * x[idx - lat] + c[1] * v
+        out[idx] = v
+    return out.reshape(b, n_blocks * parsiz)
 
 
 def wavefronts(items, addr, nbytes):
@@ -291,11 +411,11 @@ def test_emulated_kernel_matches_plain_twin(parsiz):
 @pytest.mark.parametrize("parsiz", PARSIZ)
 def test_shared_memory_is_conflict_free(parsiz):
     frames = np.zeros((1, parsiz), np.float32)
-    h, wp = (t.numpy() for t in fc._product_tables(
-        fc.hilbert_fir_spectrum(parsiz, parsiz), parsiz))
-    _, _, log = ola_frames(frames, h, wp, fc._twiddles_np(parsiz))
+    h, wp = _tables(fc.hilbert_fir_spectrum(parsiz, parsiz), parsiz)
+    _, _, sm = ola_frames(frames, h, wp,
+                          StageTwiddles(fc._stage_twiddles_np(parsiz)))
     total = ideal = 0
-    for items, addr, nbytes in log:
+    for items, addr, nbytes in sm.log:
         w, best = wavefronts(items, addr, nbytes)
         total, ideal = total + w, ideal + best
         if nbytes == 8 and len(items) == parsiz // 4:  # a radix-4 pass
@@ -305,3 +425,135 @@ def test_shared_memory_is_conflict_free(parsiz):
         if nbytes == 16:  # the copies
             assert w == best, "a frame copy has a bank conflict"
     assert total <= 1.15 * ideal, total / ideal
+
+
+# ---- the stage-major twiddle table ------------------------------------------
+
+
+def test_table_formulas_are_the_kernels():
+    src = SRC.read_text()
+    assert re.search(r"int pass_offset\(int m, int log2h\) \{\s*"
+                     r"return \(m - \(2 << log2h\)\) / 3;", src)
+    assert re.search(r"int table_len\(int m\) \{\s*return \(m - 1\) / 3;",
+                     src)
+    assert re.search(r"run_start\(long long b,\s*long long n_frames,\s*"
+                     r"long long grid\) \{\s*return \(b \* n_frames\) / grid;",
+                     src)
+
+
+@pytest.mark.parametrize("parsiz", PARSIZ)
+def test_stage_table_holds_the_twiddles_each_pass_reads(parsiz):
+    """Row pass_offset(M, log2h) + j is {W_2h^j, W_h^j} as the earlier kernel
+    read them from the natural-order table, for every pass and j < h/2;
+    the passes tile the table without a gap."""
+    table = fc._stage_twiddles_np(parsiz)
+    tw = fc._twiddles_np(parsiz)
+    log2m = parsiz.bit_length() - 1
+    assert table.dtype == np.float32
+    assert table.shape == (table_len(parsiz), 4)
+    assert table.nbytes == {2048: 10912, 4096: 21840, 8192: 43680,
+                            16384: 87376}[parsiz]
+    rows = []
+    for log2h in range(log2m - 1, 0, -2):
+        j = np.arange(1 << (log2h - 1))
+        row = pass_offset(parsiz, log2h) + j
+        wa, wc = stage_tw(tw, j, log2m, log2h), stage_tw(tw, 2 * j, log2m,
+                                                         log2h)
+        assert np.array_equal(table[row], np.stack([*wa, *wc], axis=1))
+        rows.append(row)
+    assert np.array_equal(np.concatenate(rows), np.arange(len(table)))
+
+
+@pytest.mark.parametrize("parsiz", PARSIZ)
+def test_stage_table_reads_equal_the_natural_reads(parsiz):
+    """The emulation reading the stage-major table gives the same bits as
+    the same emulation reading the natural-order table."""
+    rng = np.random.default_rng(parsiz + 1)
+    frames = rng.standard_normal((2, parsiz)).astype(np.float32)
+    h, wp = _tables(fc.hilbert_fir_spectrum(parsiz - 1024, parsiz), parsiz)
+    new = ola_frames(frames, h, wp,
+                     StageTwiddles(fc._stage_twiddles_np(parsiz)))
+    old = ola_frames(frames, h, wp, NaturalTwiddles(fc._twiddles_np(parsiz)))
+    assert np.array_equal(new[0], old[0]) and np.array_equal(new[1], old[1])
+
+
+def _lines_per_warp(twlog):
+    """The most 128-byte lines one warp's read touches, per read."""
+    most = []
+    for items, addr, _ in twlog:
+        lines = np.unique(((items // 32) << 32) | (addr // 128))
+        most.append(np.unique(lines >> 32, return_counts=True)[1].max())
+    return most
+
+
+@pytest.mark.parametrize("parsiz", PARSIZ)
+def test_twiddle_reads_are_contiguous(parsiz):
+    """Each warp's read of a pass twiddle touches at most four 128-byte
+    lines, were the table in global memory (512 contiguous bytes at
+    most), and is one wavefront per quarter-warp from shared memory, as
+    the kernel stages it; the natural-order reads it replaced touched up
+    to 32 lines a warp, twice per butterfly."""
+    frames = np.zeros((1, parsiz), np.float32)
+    h, wp = _tables(fc.hilbert_fir_spectrum(parsiz, parsiz), parsiz)
+    _, _, sm = ola_frames(frames, h, wp,
+                          StageTwiddles(fc._stage_twiddles_np(parsiz)))
+    log2m = parsiz.bit_length() - 1
+    assert len(sm.twlog) == 2 * (log2m // 2)  # every radix-4 pass, twice
+    assert max(_lines_per_warp(sm.twlog)) <= 4
+    for items, addr, nbytes in sm.twlog:
+        w, best = wavefronts(items, addr // nbytes, nbytes)
+        assert w == best, "a twiddle read has a bank conflict"
+    _, _, old = ola_frames(frames, h, wp,
+                           NaturalTwiddles(fc._twiddles_np(parsiz)))
+    assert len(old.twlog) == 2 * len(sm.twlog)
+    assert max(_lines_per_warp(old.twlog)) == 32
+
+
+# ---- the persistent grid: runs, carry, tail scratch, fix-up -----------------
+
+
+RUN_CASES = [  # (rows, n_blocks, grid)
+    (1, 7, 7),    # one row, runs of one frame: every frame fixed up
+    (1, 9, 2),    # one row, two runs
+    (3, 5, 4),    # runs cross rows; 15 frames, not a multiple of 4
+    (4, 1, 3),    # n_blocks = 1: every frame a row's first
+    (2, 6, 1),    # one block holds everything: no fix-up
+    (5, 3, 7),    # more rows than blocks, runs of 2 and 3
+    (3, 4, 12),   # as many blocks as frames
+]
+
+
+@pytest.mark.parametrize("rows,n_blocks,grid", RUN_CASES)
+def test_runs_equal_the_two_pass_overlap_add(rows, n_blocks, grid):
+    parsiz = 2048
+    rng = np.random.default_rng(rows * 100 + n_blocks * 10 + grid)
+    frames = rng.standard_normal((rows, n_blocks, parsiz)).astype(np.float32)
+    spec = fc.hilbert_fir_spectrum(parsiz - 1024, parsiz)
+    got = emulated_runs(frames, spec, parsiz, grid)
+    want = emulated_ola_conv(frames, spec, parsiz)
+    assert np.array_equal(got, want)
+    plain = fc.fused_ola_conv_plain(torch.from_numpy(frames), spec,
+                                    parsiz).numpy()
+    assert np.abs(got - plain).max() < 3e-6
+
+
+@pytest.mark.parametrize("rows,n_blocks,grid", RUN_CASES)
+def test_runs_mix_equals_the_two_pass_mix(rows, n_blocks, grid):
+    """Mix mode, as fused_rotate_fir frames it (FIR 1024, lat 512, parsiz
+    2048): finished heads mixed in the copy-out, run-first frames in the
+    fix-up, bit-equal to the mix after a two-pass overlap-add and within
+    the mix budget of the plain twin."""
+    firlen = 1024
+    n = n_blocks * 2048 - firlen // 2  # n_blocks frames cover n + lat
+    rng = np.random.default_rng(rows * 7 + n_blocks + grid)
+    x = torch.from_numpy(rng.standard_normal((rows, n)).astype(np.float32))
+    turns = torch.from_numpy(rng.uniform(-0.5, 0.5, rows).astype(np.float32))
+    frames, cs, spec, parsiz, lat = fc._rotate_operands(x, turns, firlen)
+    assert (parsiz, lat) == (2048, 512) and frames.shape[1] == n_blocks
+    frames, cs = frames.numpy(), cs.numpy()
+    got = emulated_runs(frames, spec, parsiz, grid, cs, lat)
+    want = two_pass_mix(frames, emulated_ola_conv(frames, spec, parsiz), cs,
+                        lat)
+    assert np.array_equal(got, want)
+    plain = fc.fused_rotate_fir_plain(x, turns, firlen).numpy()
+    assert np.abs(got[:, lat : lat + n] - plain).max() < 2e-5

@@ -2,9 +2,11 @@
 
 Every public name of the JAX top level, ``core``, ``ops``, ``search``
 (with ``search.sweep`` and ``search.packed``), ``parallel`` (with its two
-modules), ``fleet``, ``io``, ``utils`` and the plugin role and serving
-(``plugin``, ``gui``, ``stream`` with ``stream.broker``, ``bridge``,
-``hostapp``, ``tui``, ``io.playback``) exists in the port, apart
+modules), ``fleet``, ``io``, ``utils``, ``kernels`` (with its three
+modules), ``meter``, ``models``, ``stream`` (with ``stream.engine``,
+``stream.host`` and ``stream.broker``) and the plugin role and serving
+(``plugin``, ``gui``, ``bridge``, ``hostapp``, ``tui``, ``io.playback``)
+exists in the port, apart
 from the ones listed below with the reason each stays behind; the small
 functions that closed the gaps agree with their JAX twins on seeded input;
 the int16 ingest equals the float path; and the profiling hooks work on
@@ -49,11 +51,30 @@ LEFT_BEHIND = {
         "pack_pcm16": "int16 -> int32 bitcast: int16 transfers hung on "
                       "the TPU runtime; the port ships int16 as it is",
     },
+    "kernels": {
+        "use_interpret": "the Pallas interpret-mode switch: the port's "
+                         "wrappers take the plain twin for a CPU tensor",
+    },
+    "kernels.rotate_peak": {
+        "on_tpu": "the Pallas interpret-mode switch, as use_interpret",
+        "use_interpret": "the Pallas interpret-mode switch: the port's "
+                         "wrappers take the plain twin for a CPU tensor",
+    },
+    "kernels.fused_conv": {
+        "fir_kk_layout": "the 4-step matmul FFT's [k1][k2] layout for the "
+                         "TPU's matrix unit; the CUDA kernel takes the "
+                         "plain half spectrum (hilbert_fir_spectrum)",
+        "hilbert_fir_kk": "the FIR in that [k1][k2] layout, as "
+                          "fir_kk_layout",
+    },
 }
 SURFACES = ["", "core", "ops", "search", "search.sweep", "search.packed",
             "parallel", "parallel.mesh", "parallel.batch", "fleet", "io",
-            "utils", "plugin", "plugin.lifecycle", "gui", "stream",
-            "stream.broker", "bridge", "hostapp", "tui", "io.playback"]
+            "utils", "kernels", "kernels.stream_conv", "kernels.fused_conv",
+            "kernels.rotate_peak", "meter", "models", "plugin",
+            "plugin.lifecycle", "gui", "stream", "stream.engine",
+            "stream.host", "stream.broker", "bridge", "hostapp", "tui",
+            "io.playback"]
 
 
 def _pair(sub):
@@ -93,6 +114,13 @@ def test_left_behind_names_are_names_of_the_jax_package():
         j_mod, _ = _pair(sub)
         for name in names:
             assert name in j_mod.__all__, (sub, name)
+
+
+def test_jax_kernel_names_are_the_ports_wrappers():
+    from phaserotate_tpu_torch.kernels import stream_conv as sc
+
+    assert sc.fused_hilbert_small is sc.hilbert_small
+    assert sc.fused_rotate_small is sc.rotate_small
 
 
 def test_top_level_lazy_names():
