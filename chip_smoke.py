@@ -43,10 +43,10 @@ then, on the first CUDA device:
    4,194,304 and 8 x 2 x 8,388,608, zero-padded tails included); and the
    ``parallel`` package on meshes that name the card four (three) times:
    sample sharding of the 4-minute file (1-D and 2 x 2) within 2e-5 of
-   the unsharded sweep, angle sharding on three shards (the sweep kernel's
-   one-angle loop) and files sharding of the 64 x 2 x 10 s search
-   bit-equal to it, ``batch_rotate`` and ``sharded_rotate`` within 1e-5 of
-   ``rotate_fir``;
+   the unsharded sweep, angle sharding on three and on four shards (the
+   sweep kernel's general map) and files sharding of the 64 x 2 x 10 s
+   search bit-equal to it, ``batch_rotate`` and ``sharded_rotate`` within
+   1e-5 of ``rotate_fir``;
    then, with the counters at 0 a fourth time, the serving path: the
    daemon (``bridge.serve(sock, batch_sessions=8, pipeline=-1,
    ui_port=0)``) in a thread of this process on the card, eight
@@ -69,9 +69,15 @@ then, on the first CUDA device:
    mixes < 2e-5, fused_conv at every supported partition size); the two
    kernels no main path calls (``fused_rotate_fir``, ``peak``) have
    ``launches`` 0 and this check's own count under ``check_launches``;
-   the sweep also with a 120-angle slice of the table (the kernel's
-   one-angle loop, ``rotate_peak_sweep_general``) and on NaN and inf
-   samples (equal with NaN equal to NaN);
+   the sweep also with the slices of the table that a 3-way and a 4-way
+   angle-sharded sweep passes (120 and 90 angles), a random 512-angle
+   table and one angle, at both shapes (the kernel's general map,
+   ``rotate_peak_sweep_general``, whose row gives the slowest 3-way
+   slice's time and bound, slices within 1 % of it taken as tied and the
+   one with the largest bound picked; every slice's time on a line of its
+   own), and
+   on NaN and inf samples with 360, 120 and 90 angles (equal with NaN
+   equal to NaN);
 5. prints the wall time of each phase and, per kernel, its time beside its
    plain version's, its bound (``bound_ms``: the larger of its bytes over
    the H100's 3.35 TB/s and its FP32 operations over 67 TFLOP/s,
@@ -90,9 +96,10 @@ then, on the first CUDA device:
    kernel and of the fix-up of the run-first frames).
 
 After the build it prints ptxas' registers and spills per kernel and a
-``sass:`` line, the FMUL/FADD/FMNMX/LDS counts of the sweep kernel's
-machine code (``cuobjdump -sass``), and after the sweep's timing the SM
-clock beside its maximum.
+``sass:`` line per instantiation of the sweep kernel, the FP32, integer
+max and LDS counts of its machine code (``cuobjdump -sass``), and after
+the sweep's timing the SM clock beside its maximum.  Before the kernels'
+line it prints the script's wall time.
 
 The CLI and the models run without a device argument, so the port's own
 default (the CUDA device) places the work.
@@ -118,6 +125,7 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+STARTED = time.perf_counter()
 RATE = 48000
 SEED = 20240917
 # published H100 SXM peaks (NVIDIA's data sheet) for the kernels' bounds
@@ -245,12 +253,23 @@ def sweep_flops_per_sample(cs) -> int:
     return 6 * pairs + 4 * (len(c) - 2 * pairs)
 
 
+def sweep_bound(b0, b1, table) -> dict:
+    """The sweep's bound on (rows, n) signals with ``table``: both signals,
+    the table and the (rows, A) table of peaks moved once, and the
+    operations ``sweep_flops_per_sample`` counts for every sample."""
+    return bound(nbytes(b0, b1, table) + b0.shape[0] * table.shape[1] * 4,
+                 sweep_flops_per_sample(table) * b0.numel())
+
+
 def sweep_sass(so) -> str:
-    """The ``sass:`` line, a report and not a check: FMUL/FADD/FMNMX/LDS
-    counts (by opcode with its modifiers) in the sweep kernel's SASS, from
-    ``cuobjdump -sass`` of the built library; how many FMNMX take an
-    |operand|; and the same counts inside each loop that loads from shared
-    memory (a backward branch and the code it spans), hottest first."""
+    """The ``sass:`` lines, a report and not a check: for each
+    instantiation of the sweep kernel (``sweep_kernel<K>``, K the general
+    map's angles per thread) in ``cuobjdump -sass`` of the built library,
+    the FMUL/FADD/FFMA/FMNMX/LOP3/(V)IMNMX/LDS counts (by opcode with its
+    modifiers); how many FMNMX take an |operand|; and the same counts
+    inside each loop that loads from shared memory (a backward branch and
+    the code it spans, an outer loop with its inner ones), longest
+    first."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
@@ -260,35 +279,42 @@ def sweep_sass(so) -> str:
                           text=True, timeout=120)
     if proc.returncode:
         return f"sass: cuobjdump exited {proc.returncode}"
-    funcs = re.split(r"\n\s*Function : ", proc.stdout)
-    body = next((f for f in funcs[1:]
-                 if "sweep_kernel" in f.split("\n", 1)[0]), None)
-    if body is None:
+    funcs = [f for f in re.split(r"\n\s*Function : ", proc.stdout)[1:]
+             if "sweep_kernel" in f.split("\n", 1)[0]]
+    if not funcs:
         return "sass: no sweep_kernel in the library"
-    code = [(int(addr, 16), op, args) for addr, op, args in re.findall(
-        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)([^;]*);",
-        body)]
 
     def mix(ops):
         counts: dict = {}
         for _, op, _ in ops:
-            if op.split(".")[0] in ("FMUL", "FADD", "FMNMX", "LDS"):
+            if op.split(".")[0] in ("FMUL", "FADD", "FFMA", "FMNMX", "LOP3",
+                                    "IMNMX", "VIMNMX", "LDS"):
                 counts[op] = counts.get(op, 0) + 1
         return dict(sorted(counts.items()))
 
-    loops = []
-    for addr, op, args in code:
-        target = re.match(r"\s*(?:`\()?0x([0-9a-f]+)", args)
-        if op.startswith("BRA") and target and int(target.group(1), 16) < addr:
-            span = [c for c in code if int(target.group(1), 16) <= c[0] <= addr]
-            if any(c[1].startswith("LDS") for c in span):
-                loops.append(dict(instructions=len(span), **mix(span)))
-    loops.sort(key=lambda lp: -lp.get("FMNMX", 0))
-    abs_max = sum(1 for _, op, args in code
-                  if op.startswith("FMNMX") and "|" in args)
-    return (f"sass: sweep_kernel {len(code)} instructions, "
-            f"{json.dumps(mix(code))}, FMNMX with an |operand| {abs_max}; "
-            f"loops {json.dumps(loops)}")
+    lines = []
+    for body in funcs:
+        k = re.search(r"sweep_kernelILi(\d+)E", body.split("\n", 1)[0])
+        name = f"sweep_kernel<{k.group(1)}>" if k else "sweep_kernel"
+        code = [(int(addr, 16), op, args) for addr, op, args in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)([^;]*);",
+            body)]
+        loops = []
+        for addr, op, args in code:
+            target = re.match(r"\s*(?:`\()?0x([0-9a-f]+)", args)
+            if (op.startswith("BRA") and target
+                    and int(target.group(1), 16) < addr):
+                span = [c for c in code
+                        if int(target.group(1), 16) <= c[0] <= addr]
+                if any(c[1].startswith("LDS") for c in span):
+                    loops.append(dict(instructions=len(span), **mix(span)))
+        loops.sort(key=lambda lp: -lp["instructions"])
+        abs_max = sum(1 for _, op, args in code
+                      if op.startswith("FMNMX") and "|" in args)
+        lines.append(f"sass: {name} {len(code)} instructions, "
+                     f"{json.dumps(mix(code))}, FMNMX with an |operand| "
+                     f"{abs_max}; loops {json.dumps(loops)}")
+    return "\n".join(sorted(lines))
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -705,7 +731,7 @@ def drive_catalogue(tmp, dev, card, times, x4, fleet, stems, stem_degs,
     """The third counted run: the fleet front end over a catalogue on
     disk, and the ``parallel`` package on meshes that name the one card
     several times over.  Returns this run's launch counts, with the
-    one-angle-loop launches of the angle-sharded sweep under
+    general-map launches of the angle-sharded sweeps under
     ``rotate_peak_sweep_general``."""
     import torch
 
@@ -868,12 +894,14 @@ def drive_catalogue(tmp, dev, card, times, x4, fleet, stems, stem_degs,
           f"sweep_peaks_aux: max err {err!r}")
     check(err < 2e-5, "sample-sharded sweep vs the unsharded sweep")
     before = _build.launches["rotate_peak_sweep"]
-    with phase("angle_sharded_sweep_4min_stereo_3_shards", card, times):
-        pa, ra = angle_sharded_sweep_peaks(x4, geom,
-                                           file_mesh(3, devices=[dev] * 3))
+    for shards, mesh in ((3, file_mesh(3, devices=[dev] * 3)), (4, mesh4)):
+        with phase(f"angle_sharded_sweep_4min_stereo_{shards}_shards", card,
+                   times):
+            pa, ra = angle_sharded_sweep_peaks(x4, geom, mesh)
+        check(torch.equal(pa, want_t) and torch.equal(ra, want_r),
+              f"angle-sharded sweep on {shards} shards is not bit-equal to "
+              f"the unsharded sweep")
     general = _build.launches["rotate_peak_sweep"] - before
-    check(torch.equal(pa, want_t) and torch.equal(ra, want_r),
-          "angle-sharded sweep is not bit-equal to the unsharded sweep")
     fleet_t, fleet_r = sweep_peaks_aux(fleet, geom)
     with phase("batch_sweep_64x2x10s_4_shards", card, times):
         bt, br = batch_sweep_peaks(fleet, geom, mesh4)
@@ -1627,9 +1655,18 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
     b0, b1, _, _ = aligned_pair(x4, geom)
     cs = all_angle_cos_sin(dev)
     fb0, fb1, _, _ = aligned_pair(fleet, geom)
-    # an angle slice, as the angle-parallel path passes: the kernel's
-    # one-angle loop (the canonical table runs its mirror-pair units)
-    cs120 = cs[:, 120:240].contiguous()
+    # the angle slices the angle-sharded sweep passes on 3 and 4 cards, a
+    # random 512-angle table and one angle: the kernel's general map (the
+    # canonical table runs its mirror-pair units)
+    slices3 = [cs[:, 120 * i : 120 * (i + 1)].contiguous() for i in range(3)]
+    cs90 = cs[:, :90].contiguous()
+    general_tables = {
+        **{f"3-way slice {i} (120 angles)": t
+           for i, t in enumerate(slices3)},
+        "4-way slice 0 (90 angles)": cs90,
+        "random 512 angles": torch.from_numpy(np.random.default_rng(
+            SEED + 12).uniform(-1, 1, (2, 512)).astype(np.float32)).to(dev),
+        "1 angle": cs[:, 37:38].contiguous()}
 
     def sweep_equal(table, table_name):
         for shape_name, (u0, u1) in (("4min stereo", (b0, b1)),
@@ -1638,8 +1675,10 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
                               rotate_peak_sweep_plain(u0, u1, table)),
                   f"sweep table not bit-equal ({shape_name}, {table_name})")
 
-    sweep_equal(cs, "360 angles")
-    sweep_equal(cs120, "120 angles")
+    with phase("sweep_equal_check", card, times):
+        sweep_equal(cs, "360 angles")
+        for table_name, table in general_tables.items():
+            sweep_equal(table, table_name)
     # NaN and inf samples: NaN propagates to the row's angles as in the
     # plain twin (and JAX); the other rows stay bit-equal
     with phase("sweep_nan_inf_check", card, times):
@@ -1648,7 +1687,7 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
         nb0[0, 1000] = float("nan")
         nb1[1, 300_000] = float("inf")
         nb0[2, 400_000], nb1[2, 400_000] = float("inf"), float("-inf")
-        for table in (cs, cs120):
+        for table in (cs, slices3[1], cs90):
             k = rotate_peak_sweep_kernel(nb0, nb1, table)
             p = rotate_peak_sweep_plain(nb0, nb1, table)
             check(bool(torch.isclose(k, p, rtol=0, atol=0,
@@ -1662,8 +1701,9 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
               and bool(k[3:].isfinite().all()),
               "NaN/inf rows of the sweep table")
         del nb0, nb1
-    print("sweep: bit-equal to the plain twin at both shapes with 360 and "
-          "120 angles; NaN/inf samples equal with NaN equal to NaN")
+    print("sweep: bit-equal to the plain twin at both shapes with 360 "
+          f"angles and {', '.join(general_tables)}; NaN/inf samples equal "
+          "with NaN equal to NaN (360, 120 and 90 angles)")
     sweep_ms = cuda_ms(lambda: rotate_peak_sweep_kernel(b0, b1, cs), 20)
     sweep_fleet_ms = cuda_ms(lambda: rotate_peak_sweep_kernel(fb0, fb1, cs),
                              20)
@@ -1681,19 +1721,34 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
         replaces="phaserotate_tpu/kernels/rotate_peak.py:110",
         launches=launches["rotate_peak_sweep"], max_abs_err=0.0,
         ms=sweep_ms, plain_ms=sweep_plain_ms,
-        **bound(nbytes(b0, b1, cs) + b0.shape[0] * 360 * 4,
-                sweep_flops_per_sample(cs) * b0.numel()),
-        library_ms=None, fleet_ms=sweep_fleet_ms))
+        **sweep_bound(b0, b1, cs), library_ms=None, fleet_ms=sweep_fleet_ms))
+    # the general map at the 4-minute shape: every 3-way slice and a 4-way
+    # one; the row reports the slowest 3-way slice (the one that sets a
+    # 3-card sharded sweep's wall), with its own bound
+    general_ms = {name: cuda_ms(
+        lambda t=table: rotate_peak_sweep_kernel(b0, b1, t), 20)
+        for name, table in general_tables.items()}
+    for name, ms in general_ms.items():
+        tb = sweep_bound(b0, b1, general_tables[name])
+        print(f"kernel rotate_peak_sweep general map, {name}: {ms!r} ms, "
+              f"bound {tb['bound_ms']!r} ms ({tb['bound_by']}) [{card}]")
+    # the three slices run the same instructions, so their times differ by
+    # noise: of those within 1 % of the slowest, the row takes the one with
+    # the largest bound (an outer slice, which has no mirror pairs)
+    ms3 = [general_ms[f"3-way slice {i} (120 angles)"] for i in range(3)]
+    slowest = max((i for i in range(3) if ms3[i] >= 0.99 * max(ms3)),
+                  key=lambda i: (sweep_flops_per_sample(slices3[i]), ms3[i]))
+    cs_slow = slices3[slowest]
     kernels.append(dict(
         name="rotate_peak_sweep_general", route="cuda",
         source="phaserotate_tpu_torch/csrc/rotate_peak.cu",
         replaces="phaserotate_tpu/kernels/rotate_peak.py:110",
         launches=general_launches, max_abs_err=0.0,
-        ms=cuda_ms(lambda: rotate_peak_sweep_kernel(b0, b1, cs120)),
-        plain_ms=cuda_ms(lambda: rotate_peak_sweep_plain(b0, b1, cs120), 2),
-        **bound(nbytes(b0, b1, cs120) + b0.shape[0] * 120 * 4,
-                sweep_flops_per_sample(cs120) * b0.numel()),
-        library_ms=None))
+        ms=ms3[slowest],
+        plain_ms=cuda_ms(lambda: rotate_peak_sweep_plain(b0, b1, cs_slow),
+                         2),
+        **sweep_bound(b0, b1, cs_slow), library_ms=None,
+        slice=f"{120 * slowest}:{120 * (slowest + 1)}"))
 
     def conv_yardstick(x, firlen):
         """The same convolution as one torch.fft overlap-add at
@@ -1891,6 +1946,8 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
     check("jax" not in sys.modules and "phaserotate_tpu" not in sys.modules,
           "JAX was imported")
     print(f"peak device memory: {torch.cuda.max_memory_allocated()} bytes")
+    print(f"chip_smoke wall time: {time.perf_counter() - STARTED:.6f} s "
+          f"[{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,15 @@
 #!/usr/bin/env python3
-"""fused_conv's Hopper kernel against an earlier version of it, on one card.
+"""fused_conv's or the sweep's Hopper kernel against an earlier version of
+it, on one card.
 
     git show <commit>:phaserotate_tpu_torch/csrc/fused_conv.cu \\
         > build/parent_fused_conv.cu
     python3 fused_conv_ab.py --parent build/parent_fused_conv.cu \
+        [--json out.json]
+
+    git show <commit>:phaserotate_tpu_torch/csrc/rotate_peak.cu \\
+        > build/parent_rotate_peak.cu
+    python3 fused_conv_ab.py --sweep --parent build/parent_rotate_peak.cu \
         [--json out.json]
 
 The parent is a ``fused_conv.cu`` with the earlier two-pass C interface
@@ -35,6 +41,21 @@ build, and the device ms of the run kernel and of the fix-up from
 torch.profiler.  The last line is a JSON object of it all, also written
 to ``--json`` where given; the exit code is 1 unless every output is
 bit-identical.  Without a CUDA device it exits 2.
+
+With ``--sweep`` the parent is a ``rotate_peak.cu`` with the same C
+interface (``prt_rotate_peak_sweep``).  The script builds it and this
+checkout's ``rotate_peak.cu``, each alone into a temp dir, prints both
+ptxas reports, and runs both sweeps on a seeded (2, 11,520,000) pair (the
+4-minute stereo file's shape) with: the canonical 360-angle table (the
+pair units); each slice of it that a 3-way and a 4-way angle-sharded sweep
+passes (120 and 90 angles, the general map); a random 512-angle table;
+one angle; and the canonical table on samples with a NaN in every tile
+(the general map's bit form throughout).  Each output is held against
+the parent's bit for bit (NaN bits too) and against the plain twin (NaN
+equal to NaN); each is timed with CUDA events in turns (parent, this
+checkout, then the reverse, mean of the two).  The last line is a JSON
+object of it all; the exit code is 1 unless every output is
+bit-identical to the parent's and equal to the plain twin's.
 """
 
 from __future__ import annotations
@@ -103,12 +124,127 @@ def build_lib(src_text: str, tmp: str, name: str):
     return ctypes.CDLL(so), ptxas
 
 
+def card_name() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def sweep_tables(dev):
+    """The sweep A/B's tables by name: (cos_sin, samples with a NaN in
+    every tile)."""
+    import torch
+
+    from phaserotate_tpu_torch.core.angles import all_angle_cos_sin
+
+    cs = all_angle_cos_sin(dev)
+    rng = np.random.default_rng(7)
+    tables = {"canonical_360": (cs, False)}
+    for i in range(3):
+        tables[f"slice3_{i}_120"] = (cs[:, 120 * i : 120 * (i + 1)], False)
+    for i in range(4):
+        tables[f"slice4_{i}_90"] = (cs[:, 90 * i : 90 * (i + 1)], False)
+    tables["random_512"] = (torch.from_numpy(rng.uniform(
+        -1, 1, (2, 512)).astype(np.float32)).to(dev), False)
+    tables["one_angle"] = (cs[:, 37:38], False)
+    tables["canonical_360_nan_tiles"] = (cs, True)
+    return {k: (v.contiguous(), nan) for k, (v, nan) in tables.items()}
+
+
+def sweep_ab(args) -> int:
+    """The ``--sweep`` mode of the module docstring."""
+    import torch
+
+    import chip_smoke as smoke
+    from phaserotate_tpu_torch.kernels import _build
+    from phaserotate_tpu_torch.kernels.rotate_peak import (
+        rotate_peak_sweep_plain)
+
+    card = card_name()
+    print(card)
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    with open(os.path.join(REPO, "phaserotate_tpu_torch", "csrc",
+                           "rotate_peak.cu")) as f:
+        src = f.read()
+    with open(args.parent) as f:
+        parent_src = f.read()
+    report = dict(card=card, tables={})
+    with tempfile.TemporaryDirectory(prefix="sweep_ab_") as tmp:
+        libs = {}
+        for name, text in (("parent", parent_src), ("change", src)):
+            libs[name], ptxas = build_lib(text, tmp, f"sweep_{name}")
+            fn = libs[name].prt_rotate_peak_sweep
+            fn.argtypes = _build._SIGNATURES["prt_rotate_peak_sweep"]
+            fn.restype = ctypes.c_int
+            for line in ptxas:
+                print(f"ptxas {name}:", line)
+            for line in smoke.sweep_sass(os.path.join(
+                    tmp, f"libsweep_{name}.so")).splitlines():
+                print(f"{name} {line}")
+        rng = np.random.default_rng(20240917)
+        n = 240 * 48000
+        b0 = torch.from_numpy(rng.standard_normal(
+            (2, n), dtype=np.float32)).to(dev)
+        b1 = torch.from_numpy(rng.standard_normal(
+            (2, n), dtype=np.float32)).to(dev)
+        nan0 = b0.clone()
+        nan0[:, 1234::4096] = float("nan")  # one in every 4096-sample tile
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def sweep(name, x0, table):
+            out = torch.zeros((2, table.shape[1]), device=dev)
+
+            def run():
+                out.zero_()
+                _build.check(libs[name].prt_rotate_peak_sweep(
+                    x0.data_ptr(), b1.data_ptr(), n, n, table.data_ptr(),
+                    out.data_ptr(), 2, n, table.shape[1], 4096, stream),
+                    name)
+            return out, run
+
+        ok = True
+        for label, (table, nan) in sweep_tables(dev).items():
+            x0 = nan0 if nan else b0
+            outs, fns = {}, {}
+            for name in libs:
+                outs[name], fns[name] = sweep(name, x0, table)
+                fns[name]()
+            plain = rotate_peak_sweep_plain(x0, b1, table)
+            torch.cuda.synchronize()
+            same = torch.equal(outs["change"].view(torch.int32),
+                               outs["parent"].view(torch.int32))
+            equal_plain = bool(torch.isclose(
+                outs["change"], plain, rtol=0, atol=0, equal_nan=True).all())
+            ok &= same and equal_plain
+            ms = {k: 0.0 for k in fns}
+            for turn in (list(fns), list(fns)[::-1]):
+                for k in turn:
+                    ms[k] += smoke.cuda_ms(fns[k], args.reps) / 2
+            entry = dict(angles=table.shape[1], nan_tiles=nan, ms=ms,
+                         bit_identical_to_parent=same,
+                         equal_to_plain=equal_plain,
+                         ratio=ms["change"] / ms["parent"])
+            report["tables"][label] = entry
+            print(f"sweep {label}: {json.dumps(entry)} [{card}]")
+    report["bit_identical"] = ok
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(report, f, indent=1)
+    print(json.dumps(report))
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True,
-                    help="the earlier fused_conv.cu (two-pass interface)")
+                    help="the earlier fused_conv.cu (two-pass interface), "
+                         "or with --sweep the earlier rotate_peak.cu")
+    ap.add_argument("--sweep", action="store_true",
+                    help="compare the sweep kernel, not fused_conv")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--json", help="also write the report to this file")
     args = ap.parse_args(argv)
@@ -116,14 +252,13 @@ def main(argv=None) -> int:
         print("fused_conv_ab: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    if args.sweep:
+        return sweep_ab(args)
     import chip_smoke as cs
     from phaserotate_tpu_torch.kernels import _build
     from phaserotate_tpu_torch.kernels import fused_conv as fc
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_name()
     print(card)
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)

@@ -50,11 +50,29 @@
 // pairs, bit for bit; that each |cos| and |sin| is <= 1; and that every
 // staged sample is finite.  One __syncthreads_and combines the answers.
 // Under those conditions no product overflows and no sum is NaN, so
-// fmaxf, which drops NaN, loses nothing.  A block that fails any of them
-// (an angle slice, another table, a tile with a NaN or an inf) runs the
-// general loop instead: one angle at a time for any table, with the abs-max
-// taken on the bits as unsigned int, which propagates NaN as torch.amax and
-// jnp.max do.
+// fmaxf, which drops NaN, loses nothing.
+//
+// A block that fails any of them (an angle slice, another table, a tile
+// with a NaN or an inf) runs the general map, for any table of up to 512
+// angles (mirrored by kernels/rotate_peak.py GENERAL_SLOTS and
+// general_slots).  It has the same shape as the pair units: each thread
+// holds the cos/sin of K angles and K running maxima in registers, K =
+// min(ceil(A / 20), 9) a template parameter chosen on the host (a
+// runtime K would leave padded slots issuing), and walks samples i = lane
+// (mod 8), so one LDS.64 feeds 4K FP32 instructions: 4 + 1/K per
+// sample-angle, where one thread per angle walking the whole tile would
+// take ~6 (a broadcast LDS.64 each).  Slot j of group g in chunk c is angle
+// c * 20K + g * K + j: a table above 20K angles runs in chunks over the
+// same staged tile, each angle in exactly one (chunk, group, slot).  The
+// group's 8 lanes combine by shuffles; the group leader writes its
+// angles' maxima into a region of shared memory after the tile (which the
+// next chunk still reads), and after the last chunk one barrier and one
+// coalesced atomicMax per angle, as above.  A second __syncthreads_and,
+// reached by the whole block on this branch alone, picks the form: where
+// the tile is finite and every |cos|, |sin| <= 1, fmaxf with the |.|
+// operand modifier (one FMNMX); otherwise the abs-max on the bits as
+// unsigned int (the |.| and an integer max, 5 + 1/K), which propagates
+// NaN as torch.amax and jnp.max do.  Either way a zero sample gives +0.
 //
 // Rounding: __fmul_rn / __fadd_rn / __fsub_rn keep the compiler from
 // contracting c*b0 + s*b1 into an FMA, so every value rounds exactly as
@@ -73,6 +91,9 @@ constexpr int kSweepLanes = 8;     // threads of a group
 constexpr int kSweepUnits = 9;     // units per thread
 constexpr int kSweepThreads = kSweepGroups * kSweepLanes;  // 160: 5 warps
 constexpr int kMaxAngles = 512;    // the wrapper's limit on any table
+// the general map's most angles per thread (GENERAL_SLOTS); K is
+// min(ceil(A / kSweepGroups), kGeneralSlots), in prt_rotate_peak_sweep
+constexpr int kGeneralSlots = 9;
 static_assert(2 * kSweepGroups * kSweepUnits == kSweepAngles,
               "every angle in exactly one unit");
 static_assert(32 % kSweepLanes == 0, "a group lies within one warp");
@@ -113,6 +134,43 @@ __device__ __forceinline__ void pair_units(
   }
 }
 
+// One chunk of the general map over this thread's samples i = lane
+// (mod 8): slot j is angle a0 + j, (c[j], s[j]) = (0, 0) past the table.
+// kFinite: the block's tile is finite and its table bounded, so |y| is
+// never NaN and fmaxf takes the max; otherwise the max is taken on the
+// bits as unsigned int.  Returns the maxima's bits in m.
+template <int K, bool kFinite>
+__device__ __forceinline__ void general_slots(
+    const float2* __restrict__ tile, int len, int lane,
+    const float (&c)[K], const float (&s)[K], unsigned int (&m)[K]) {
+  float f[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    f[j] = 0.f;
+    m[j] = 0u;
+  }
+#pragma unroll 4
+  for (int i = lane; i < len; i += kSweepLanes) {
+    const float2 v = tile[i];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const float y = __fadd_rn(__fmul_rn(c[j], v.x), __fmul_rn(s[j], v.y));
+      if (kFinite) {
+        f[j] = fmaxf(f[j], fabsf(y));
+      } else {
+        m[j] = max(m[j], __float_as_uint(fabsf(y)));
+      }
+    }
+  }
+  if (kFinite) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) m[j] = __float_as_uint(f[j]);
+  }
+}
+
+// K: the general map's angles per thread.  Only K = kGeneralSlots can
+// serve the canonical table (A = 360), so only it carries the pair units.
+template <int K>
 __global__ void __launch_bounds__(kSweepThreads)
 sweep_kernel(const float* __restrict__ b0, const float* __restrict__ b1,
              long long stride0, long long stride1,
@@ -120,6 +178,9 @@ sweep_kernel(const float* __restrict__ b0, const float* __restrict__ b1,
              unsigned int* __restrict__ out, long long n, int a_count,
              int tile_len, int tiles) {
   extern __shared__ float2 tile[];
+  // the maxima by angle, after the tile: the general map's chunks write
+  // theirs while later chunks still read the tile
+  unsigned int* peak = reinterpret_cast<unsigned int*>(tile + tile_len);
   const long long row = blockIdx.x / tiles;
   const long long start = static_cast<long long>(blockIdx.x % tiles) *
                           tile_len;
@@ -127,88 +188,117 @@ sweep_kernel(const float* __restrict__ b0, const float* __restrict__ b1,
   const float* r1 = b1 + row * stride1 + start;
   const long long remain = n - start;
   const int len = remain < tile_len ? static_cast<int>(remain) : tile_len;
-  bool ok = true;
+  bool ok = true;  // finite samples and a bounded table: the fmaxf form
   for (int i = threadIdx.x; i < len; i += kSweepThreads) {
     const float x = r0[i], h = r1[i];
     tile[i] = make_float2(x, h);
     ok &= finite(x) & finite(h);
   }
-
-  // this thread's units and the check of the table on their entries
+  for (int a = threadIdx.x; a < a_count; a += kSweepThreads) {
+    ok &= bounded(cos_sin[a], cos_sin[a_count + a]);
+  }
   const int g = threadIdx.x / kSweepLanes;
   const int lane = threadIdx.x % kSweepLanes;
-  float c[kSweepUnits], s[kSweepUnits], cb0 = 0.f, sb0 = 0.f;
-  ok &= a_count == kSweepAngles;
-  if (a_count == kSweepAngles) {
-#pragma unroll
-    for (int j = 0; j < kSweepUnits; ++j) {
-      const int u = g * kSweepUnits + j;
-      const int b = u ? kSweepAngles - u : kSweepAngles / 2;
-      c[j] = cos_sin[u];
-      s[j] = cos_sin[kSweepAngles + u];
-      const float cb = cos_sin[b], sb = cos_sin[kSweepAngles + b];
-      ok &= bounded(c[j], s[j]) & bounded(cb, sb);
-      if (u) {  // a mirror pair: -cos and the same sin, bit for bit
-        ok &= (__float_as_uint(cb) ==
-               (__float_as_uint(c[j]) ^ 0x80000000u)) &
-              (__float_as_uint(sb) == __float_as_uint(s[j]));
-      }
-      if (j == 0) {
-        cb0 = cb;
-        sb0 = sb;
-      }
-    }
-  }
   unsigned int* o = out + row * a_count;
-  if (__syncthreads_and(ok)) {
-    float m1[kSweepUnits], m2[kSweepUnits];
-#pragma unroll
-    for (int j = 0; j < kSweepUnits; ++j) m1[j] = m2[j] = 0.f;
-    if (threadIdx.x < 32) {  // warp 0: unit 0 in the general form
-      pair_units<true>(tile, len, lane, c, s, cb0, sb0, m1, m2);
-    } else {
-      pair_units<false>(tile, len, lane, c, s, cb0, sb0, m1, m2);
-    }
-#pragma unroll
-    for (int j = 0; j < kSweepUnits; ++j) {
-#pragma unroll
-      for (int d = kSweepLanes / 2; d > 0; d >>= 1) {
-        m1[j] = fmaxf(m1[j], __shfl_xor_sync(0xffffffffu, m1[j], d));
-        m2[j] = fmaxf(m2[j], __shfl_xor_sync(0xffffffffu, m2[j], d));
-      }
-    }
-    // the groups' maxima by angle, in the tile's space once every thread
-    // is done with the tile
-    unsigned int* peak = reinterpret_cast<unsigned int*>(tile);
-    __syncthreads();
-    if (lane == 0) {
+
+  if constexpr (K == kGeneralSlots) {
+    // this thread's units and the mirror check of the table on their
+    // entries
+    float c[kSweepUnits], s[kSweepUnits], cb0 = 0.f, sb0 = 0.f;
+    bool pairs = ok & (a_count == kSweepAngles);
+    if (a_count == kSweepAngles) {
 #pragma unroll
       for (int j = 0; j < kSweepUnits; ++j) {
         const int u = g * kSweepUnits + j;
-        peak[u] = __float_as_uint(m1[j]);
-        peak[u ? kSweepAngles - u : kSweepAngles / 2] =
-            __float_as_uint(m2[j]);
+        const int b = u ? kSweepAngles - u : kSweepAngles / 2;
+        c[j] = cos_sin[u];
+        s[j] = cos_sin[kSweepAngles + u];
+        const float cb = cos_sin[b], sb = cos_sin[kSweepAngles + b];
+        if (u) {  // a mirror pair: -cos and the same sin, bit for bit
+          pairs &= (__float_as_uint(cb) ==
+                    (__float_as_uint(c[j]) ^ 0x80000000u)) &
+                   (__float_as_uint(sb) == __float_as_uint(s[j]));
+        }
+        if (j == 0) {
+          cb0 = cb;
+          sb0 = sb;
+        }
       }
     }
-    __syncthreads();
-    for (int a = threadIdx.x; a < kSweepAngles; a += kSweepThreads) {
-      atomicMax(o + a, peak[a]);
+    if (__syncthreads_and(pairs)) {
+      float m1[kSweepUnits], m2[kSweepUnits];
+#pragma unroll
+      for (int j = 0; j < kSweepUnits; ++j) m1[j] = m2[j] = 0.f;
+      if (threadIdx.x < 32) {  // warp 0: unit 0 in the general form
+        pair_units<true>(tile, len, lane, c, s, cb0, sb0, m1, m2);
+      } else {
+        pair_units<false>(tile, len, lane, c, s, cb0, sb0, m1, m2);
+      }
+#pragma unroll
+      for (int j = 0; j < kSweepUnits; ++j) {
+#pragma unroll
+        for (int d = kSweepLanes / 2; d > 0; d >>= 1) {
+          m1[j] = fmaxf(m1[j], __shfl_xor_sync(0xffffffffu, m1[j], d));
+          m2[j] = fmaxf(m2[j], __shfl_xor_sync(0xffffffffu, m2[j], d));
+        }
+      }
+      if (lane == 0) {  // the groups' maxima by angle
+#pragma unroll
+        for (int j = 0; j < kSweepUnits; ++j) {
+          const int u = g * kSweepUnits + j;
+          peak[u] = __float_as_uint(m1[j]);
+          peak[u ? kSweepAngles - u : kSweepAngles / 2] =
+              __float_as_uint(m2[j]);
+        }
+      }
+      __syncthreads();
+      for (int a = threadIdx.x; a < kSweepAngles; a += kSweepThreads) {
+        atomicMax(o + a, peak[a]);
+      }
+      return;
     }
-    return;
   }
-  // the general loop: any table, NaN propagates through the bit order
-  for (int a = threadIdx.x; a < a_count; a += kSweepThreads) {
-    const float ca = cos_sin[a], sa = cos_sin[a_count + a];
-    unsigned int m = 0u;
-#pragma unroll 4
-    for (int i = 0; i < len; ++i) {
-      const float2 v = tile[i];
-      const float y = __fadd_rn(__fmul_rn(ca, v.x), __fmul_rn(sa, v.y));
-      m = max(m, __float_as_uint(fabsf(y)));
+
+  // the general map: any table; the block takes one form
+  const bool fin = __syncthreads_and(ok);
+  for (int base = 0; base < a_count; base += kSweepGroups * K) {
+    const int a0 = base + g * K;
+    float c[K], s[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const bool in = a0 + j < a_count;
+      c[j] = in ? cos_sin[a0 + j] : 0.f;
+      s[j] = in ? cos_sin[a_count + a0 + j] : 0.f;
     }
-    atomicMax(o + a, m);
+    unsigned int m[K];
+    if (a0 >= a_count) {  // a group past the table issues no sample
+#pragma unroll
+      for (int j = 0; j < K; ++j) m[j] = 0u;
+    } else if (fin) {
+      general_slots<K, true>(tile, len, lane, c, s, m);
+    } else {
+      general_slots<K, false>(tile, len, lane, c, s, m);
+    }
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+#pragma unroll
+      for (int d = kSweepLanes / 2; d > 0; d >>= 1) {
+        m[j] = max(m[j], __shfl_xor_sync(0xffffffffu, m[j], d));
+      }
+      if (lane == 0 && a0 + j < a_count) peak[a0 + j] = m[j];
+    }
+  }
+  __syncthreads();
+  for (int a = threadIdx.x; a < a_count; a += kSweepThreads) {
+    atomicMax(o + a, peak[a]);
   }
 }
+
+using SweepKernel = decltype(&sweep_kernel<1>);
+const SweepKernel kSweepKernels[kGeneralSlots] = {
+    sweep_kernel<1>, sweep_kernel<2>, sweep_kernel<3>,
+    sweep_kernel<4>, sweep_kernel<5>, sweep_kernel<6>,
+    sweep_kernel<7>, sweep_kernel<8>, sweep_kernel<9>};
 
 }  // namespace
 
@@ -224,13 +314,14 @@ extern "C" int prt_rotate_peak_sweep(const float* b0, const float* b1,
   const long long tiles = (n + tile_len - 1) / tile_len;
   const long long blocks = tiles * rows;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  // the tile, which also holds the 360 maxima of the pair units' combine
-  const size_t smem =
-      static_cast<size_t>(tile_len > kSweepAngles / 2 ? tile_len
-                                                      : kSweepAngles / 2) *
-      sizeof(float2);
-  sweep_kernel<<<static_cast<unsigned>(blocks), kSweepThreads, smem,
-                 static_cast<cudaStream_t>(stream)>>>(
+  // the general map's angles per thread: every group full where A allows
+  const int per_group = (a_count + kSweepGroups - 1) / kSweepGroups;
+  const int k = per_group < kGeneralSlots ? per_group : kGeneralSlots;
+  // the tile, then the maxima of up to kMaxAngles angles
+  const size_t smem = static_cast<size_t>(tile_len) * sizeof(float2) +
+                      kMaxAngles * sizeof(unsigned int);
+  kSweepKernels[k - 1]<<<static_cast<unsigned>(blocks), kSweepThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
       b0, b1, stride0, stride1, cos_sin, reinterpret_cast<unsigned int*>(out),
       n, a_count, tile_len, static_cast<int>(tiles));
   return static_cast<int>(cudaGetLastError());

@@ -29,6 +29,19 @@ SWEEP_GROUPS = 20
 SWEEP_LANES = 8
 SWEEP_UNITS = 9
 
+# The general map (any other table, and any tile the pair units refuse),
+# mirrored by csrc/rotate_peak.cu kGeneralSlots and its host choice of K:
+# each thread holds K = general_slots(A) angles, slot j of group g in
+# chunk c being angle c * SWEEP_GROUPS * K + g * K + j, chunks over the
+# same staged tile until the table is covered.
+GENERAL_SLOTS = 9
+
+
+def general_slots(a_count: int) -> int:
+    """K, the general map's angles per thread for an ``a_count``-angle
+    table: every group full where ``a_count`` allows."""
+    return min(-(-a_count // SWEEP_GROUPS), GENERAL_SLOTS)
+
 _MAX_ANGLES = 512  # the kernel's limit on any table (kMaxAngles)
 _MAX_TILE = 4096   # (b0, b1) tile in 32 KiB of shared memory
 
@@ -56,8 +69,9 @@ def rotate_peak_sweep_kernel(
 
     Returns (..., A) float32, bit-equal to the plain version (NaN where
     it has NaN).  The canonical 360-angle table runs the kernel's
-    mirror-pair units, any other table its one-angle loop; the kernel
-    tells them apart on the device.
+    mirror-pair units, any other table (and a tile with a NaN or an inf)
+    its general map of :func:`general_slots` angles per thread; the
+    kernel tells them apart on the device.
     """
     if b0.device.type == "cpu":
         return rotate_peak_sweep_plain(b0, b1, cos_sin)

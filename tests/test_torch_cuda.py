@@ -59,7 +59,7 @@ def _equal_nan(a, b):
 
 def test_sweep_bit_equal(x):
     """The canonical table (mirror-pair units), an angle slice and a
-    random 360-angle table (the kernel's one-angle loop), on unaligned
+    random 360-angle table (the kernel's general map), on unaligned
     views; then NaN and inf samples, equal with NaN equal to NaN."""
     cs = all_angle_cos_sin(x.device)
     rng = np.random.default_rng(12)
@@ -82,6 +82,29 @@ def test_sweep_bit_equal(x):
     got = rotate_peak_sweep_kernel(b0, b1, cs)
     assert torch.isnan(got[0]).all() and torch.isnan(got[1, 0])
     assert torch.isposinf(got[1, 1:]).all() and not got[2].isfinite().any()
+
+
+@pytest.mark.parametrize("a_count", [1, 7, 20, 21, 90, 120, 160, 161,
+                                     180, 181, 250, 359, 512])
+def test_sweep_general_map(x, a_count):
+    """Every K of the general map and one, two and three chunks: random
+    tables within [-1, 1] (the fmaxf form) and within [-2, 2] (the bit
+    form), at three tile lengths; then NaN and inf samples."""
+    rng = np.random.default_rng(a_count)
+    b0, b1 = x[:, 50:].clone(), x[:, :-50].clone()
+    for scale in (1.0, 2.0):
+        table = torch.from_numpy(rng.uniform(
+            -scale, scale, (2, a_count)).astype(np.float32)).to(x.device)
+        for tile in (4096, 2048, 100):
+            got = rotate_peak_sweep_kernel(b0, b1, table, tile)
+            assert torch.equal(got, rotate_peak_sweep_plain(b0, b1, table))
+    b0[0, 777] = float("nan")
+    b1[1, 5000] = float("inf")
+    b0[2, 9000], b1[2, 9000] = float("inf"), float("-inf")
+    for tile in (4096, 2048):
+        got = rotate_peak_sweep_kernel(b0, b1, table, tile)
+        assert _equal_nan(got, rotate_peak_sweep_plain(b0, b1, table))
+    assert torch.isnan(got[0]).all()
 
 
 @pytest.mark.parametrize("taps", [512, 1024, 3072, 8192, 16384])

@@ -14,8 +14,14 @@ mirror) and thread roles:
   form, as warp 0's first unit of every group; then the xor-shuffle
   combine of a group's 8 lanes, the groups' maxima by angle in shared
   memory and one atomicMax per angle on the float bits;
-- the general loop (any other table, or a tile with a NaN or inf): one
-  angle at a time with the abs-max on the bits as unsigned int.
+- the general map (any other table, or a tile with a NaN or inf): K =
+  ``general_slots(A)`` angles per thread (``GENERAL_SLOTS`` of
+  kernels/rotate_peak.py, which the kernel's ``kGeneralSlots`` mirrors),
+  slot j of group g in chunk c being angle c * 20K + g * K + j, lane l
+  walking samples i = l (mod 8); the block's form, ``fmaxf`` where the tile
+  is finite and every |cos|, |sin| <= 1, else the abs-max on the bits as
+  unsigned int; the xor-shuffle combine on the bits, the leaders' maxima
+  by angle and one atomicMax per angle.
 
 The emulated table is held bit for bit against the plain twin and the JAX
 package's Pallas kernel (interpret mode).  On the CPU, XLA contracts the
@@ -109,11 +115,59 @@ def pair_tile(x, h, cs):
     return out
 
 
+def general_map(a_count):
+    """(chunk, group, slot, angle) of every slot the general map runs on an
+    ``a_count``-angle table; an angle >= a_count is a padded slot."""
+    k = rp.general_slots(a_count)
+    per_chunk = GROUPS * k
+    return [(c, g, j, c * per_chunk + g * k + j)
+            for c in range(-(-a_count // per_chunk))
+            for g in range(GROUPS) for j in range(k)]
+
+
+def fmax_form(x, h, cs):
+    """The block's form of the general map: fmaxf where every staged
+    sample is finite and every |cos|, |sin| <= 1 (no |y| is NaN), else the
+    abs-max on the bits."""
+    return bool(np.isfinite(x).all() and np.isfinite(h).all()
+                and (np.abs(cs) <= 1).all())
+
+
 def general_tile(x, h, cs):
-    """The one-angle loop: bits of |c*x + s*h|, max as unsigned int."""
-    with np.errstate(invalid="ignore"):  # -0 * inf, inf - inf: NaN
-        y = cs[0][:, None] * x[None] + cs[1][:, None] * h[None]
-    return bits(np.abs(y)).max(axis=1, initial=np.uint32(0))
+    """The general map over one staged tile: (A,) uint32 maxima, one per
+    angle, as the group leaders write them to shared memory."""
+    a_count = cs.shape[1]
+    slots = general_map(a_count)
+    ang = np.array([a for *_, a in slots])
+    inside = ang < a_count
+    at = np.minimum(ang, a_count - 1)
+    c = np.where(inside, cs[0][at], F32(0)).astype(F32)  # (0, 0) past
+    s = np.where(inside, cs[1][at], F32(0)).astype(F32)  # the table
+    fin = fmax_form(x, h, cs)
+    m = np.zeros((len(slots), LANES), np.uint32)
+    with np.errstate(invalid="ignore", over="ignore"):  # -0 * inf: NaN
+        for lane in range(LANES):  # samples i = lane (mod 8)
+            y = (c[:, None] * x[None, lane::LANES]
+                 + s[:, None] * h[None, lane::LANES])
+            if fin:
+                m[:, lane] = bits(np.fmax.reduce(np.abs(y), axis=1,
+                                                 initial=F32(0)))
+            else:
+                m[:, lane] = bits(np.abs(y)).max(axis=1,
+                                                 initial=np.uint32(0))
+    lane = np.arange(LANES)
+    d = LANES // 2
+    while d:  # __shfl_xor_sync over the group's 8 lanes, on the bits
+        m = np.maximum(m, m[:, lane ^ d])
+        d //= 2
+    assert (m == m[:, :1]).all()
+    peak = np.zeros(a_count, np.uint32)
+    written = np.zeros(a_count, int)
+    for a, v in zip(ang[inside], m[inside, 0]):  # lane 0 of each group
+        peak[a] = v
+        written[a] += 1
+    assert (written == 1).all()
+    return peak
 
 
 def emulate(b0, b1, cs, tile_len):
@@ -334,3 +388,167 @@ def test_non_finite_emulation(tile_len):
     for table in (cs[:, 120:240], _flipped(5, 0, 0)):
         got, _ = emulate(b0, b1, table, tile_len)
         np.testing.assert_array_equal(got, plain(b0, b1, table))
+
+
+# ---- the general map ----
+
+def test_cu_mirrors_the_general_map():
+    text = SRC.read_text()
+    slots = re.search(r"constexpr int kGeneralSlots = (\d+);", text)
+    assert int(slots.group(1)) == rp.GENERAL_SLOTS
+    # the host's choice of K, as general_slots makes it
+    assert ("const int per_group = (a_count + kSweepGroups - 1) / "
+            "kSweepGroups;") in text
+    assert ("const int k = per_group < kGeneralSlots ? per_group : "
+            "kGeneralSlots;") in text
+    # slot j of group g in chunk c: angle c * 20K + g * K + j
+    assert ("for (int base = 0; base < a_count; base += kSweepGroups * K)"
+            in text)
+    assert "const int a0 = base + g * K;" in text
+    assert "const bool in = a0 + j < a_count;" in text
+    # an instantiation for every K, and the canonical table takes the one
+    # that carries the pair units
+    ks = {int(k) for k in re.findall(r"sweep_kernel<(\d+)>", text)}
+    assert ks == set(range(1, rp.GENERAL_SLOTS + 1))
+    assert "if constexpr (K == kGeneralSlots)" in text
+    assert rp.general_slots(ANGLES) == rp.GENERAL_SLOTS
+
+
+@pytest.mark.parametrize("k", range(1, rp.GENERAL_SLOTS + 1))
+def test_general_map_covers_each_angle_once(k):
+    """Every A in 1..512 whose K is k: each angle in exactly one (chunk,
+    group, slot); every group full where A allows (fewer than one padded
+    slot per group in a table of one chunk)."""
+    tables = [a for a in range(1, rp._MAX_ANGLES + 1)
+              if rp.general_slots(a) == k]
+    assert tables
+    for a_count in tables:
+        slots = general_map(a_count)
+        angles = sorted(a for *_, a in slots if a < a_count)
+        assert angles == list(range(a_count))
+        assert len({(c, g, j) for c, g, j, _ in slots}) == len(slots)
+        chunks = -(-a_count // (GROUPS * k))
+        assert len(slots) == chunks * GROUPS * k
+        if k < rp.GENERAL_SLOTS:
+            assert chunks == 1 and len(slots) - a_count < GROUPS
+    if k < rp.GENERAL_SLOTS:  # every K below 9 has its full table
+        assert GROUPS * k in tables
+    else:
+        assert tables[0] == GROUPS * (k - 1) + 1 and tables[-1] == 512
+
+
+FINITE_OPS = 4  # 2 FMUL, FADD, FMNMX with the |.| operand modifier
+BITS_OPS = 5    # 2 FMUL, FADD, the |.| and an integer max on the bits
+
+
+def issued_per_sample_angle(a_count, ops):
+    """FP32 and LDS instructions per useful sample-angle, thread slots
+    counted as a warp issues them: per chunk, every warp with a group
+    inside the table runs its loop, one LDS.64 and ``ops`` per slot for
+    each sample of its lanes."""
+    k = rp.general_slots(a_count)
+    groups_per_warp = WARP // LANES
+    issued = 0
+    for chunk in range(-(-a_count // (GROUPS * k))):
+        warps = {g // groups_per_warp for c, g, _, a in
+                 general_map(a_count) if c == chunk and a < a_count}
+        issued += len(warps) * WARP * (1 + ops * k) / LANES
+    return issued / a_count
+
+
+@pytest.mark.parametrize("a_count, finite, bits_form", [
+    (20, 5.0, 6.0),                  # K = 1
+    (60, 4 + 1 / 3, 5 + 1 / 3),      # K = 3
+    (120, 4 + 1 / 6, 5 + 1 / 6),     # K = 6, a 3-way slice
+    (90, 14 / 3, 52 / 9),            # K = 5 over 18 groups: warp 4 issues
+    (180, 4 + 1 / 9, 5 + 1 / 9),     # K = 9, one chunk
+    (360, 4 + 1 / 9, 5 + 1 / 9),     # two chunks: the canonical bit form
+    (512, 4.3359375, 5.390625),      # three chunks, 28 padded slots
+])
+def test_general_instruction_model(a_count, finite, bits_form):
+    """4 + 1/K instructions per sample-angle in the fmaxf form and 5 + 1/K
+    in the bit form where every group is full, against ~6 of one thread
+    per angle walking the tile alone (a broadcast LDS.64, 2 FMUL, FADD, a
+    LOP and an IMNMX; 6.4 at A = 120, whose 120 threads fill 4 warps)."""
+    assert issued_per_sample_angle(a_count, FINITE_OPS) == pytest.approx(
+        finite, rel=1e-12)
+    assert issued_per_sample_angle(a_count, BITS_OPS) == pytest.approx(
+        bits_form, rel=1e-12)
+    if a_count == 120:
+        one_angle_loop = 4 * WARP * 6 / a_count  # 4 warps, 6 per sample
+        assert one_angle_loop == 6.4
+        assert finite / one_angle_loop == pytest.approx(0.651, abs=1e-3)
+
+
+def _shuffled_360():
+    cs = all_angle_cos_sin().numpy()
+    return cs[:, np.random.default_rng(360).permutation(ANGLES)]
+
+
+# (name, table); all take the general map
+GENERAL_TABLES = [
+    ("A=1", lambda: all_angle_cos_sin().numpy()[:, 37:38]),
+    ("A=7", lambda: all_angle_cos_sin().numpy()[:, 100:107]),
+    ("A=90 4-way slice 0", lambda: all_angle_cos_sin().numpy()[:, :90]),
+    *[(f"A=120 3-way slice {i}",
+       lambda i=i: all_angle_cos_sin().numpy()[:, 120 * i : 120 * (i + 1)])
+      for i in range(3)],
+    ("A=180", lambda: all_angle_cos_sin().numpy()[:, 180:]),
+    ("A=250", lambda: all_angle_cos_sin().numpy()[:, 50:300]),
+    ("A=360 shuffled", _shuffled_360),
+    ("A=512 random", lambda: np.random.default_rng(512).uniform(
+        -1, 1, (2, 512)).astype(F32)),
+]
+
+
+@pytest.mark.parametrize("name,make", GENERAL_TABLES,
+                         ids=[t[0] for t in GENERAL_TABLES])
+def test_general_emulation_against_plain_and_jax(name, make):
+    """Bit-equal to the plain twin; to the JAX kernel (interpret mode) bit
+    for bit on power-of-two samples and within one ulp on the others."""
+    cs = np.ascontiguousarray(make(), F32)
+    assert not table_ok(cs)
+    rng = np.random.default_rng(cs.shape[1])
+    b0, b1 = pow2_pair(rng, 2, N)
+    got, paths = emulate(b0, b1, cs, 1024)
+    assert paths == {"pairs": 0, "general": 2 * -(-N // 1024)}
+    np.testing.assert_array_equal(bits(got), bits(plain(b0, b1, cs)))
+    want = np.asarray(j_sweep(b0, b1, cs, tile_len=2048))
+    np.testing.assert_array_equal(bits(got), bits(want))
+    b0, b1 = music_pair(rng, 2, N)
+    got, _ = emulate(b0, b1, cs, 1024)
+    np.testing.assert_array_equal(bits(got), bits(plain(b0, b1, cs)))
+    want = np.asarray(j_sweep(b0, b1, cs, tile_len=2048))
+    np.testing.assert_array_max_ulp(got, want, maxulp=1)
+
+
+# (name, table, the fmaxf form on a finite tile)
+NON_FINITE_TABLES = [
+    ("canonical", lambda: all_angle_cos_sin().numpy(), True),
+    ("A=90", lambda: all_angle_cos_sin().numpy()[:, :90], True),
+    ("A=120 middle", lambda: all_angle_cos_sin().numpy()[:, 120:240], True),
+    ("A=250 |c| up to 2", lambda: np.random.default_rng(250).uniform(
+        -2, 2, (2, 250)).astype(F32), False),
+]
+
+
+@pytest.mark.parametrize("tile_len", [2048, 4096])
+@pytest.mark.parametrize("name,make,fmax_on_finite", NON_FINITE_TABLES,
+                         ids=[t[0] for t in NON_FINITE_TABLES])
+def test_general_non_finite_tiles(name, make, fmax_on_finite, tile_len):
+    """A NaN, a +inf, a -inf: the tiles that hold them take the bit form
+    (the canonical table its two chunks at K = 9) and the table equals the
+    plain twin's, NaN equal to NaN; the other tiles take fmaxf where the
+    table is bounded."""
+    cs = np.ascontiguousarray(make(), F32)
+    b0, b1 = _non_finite(np.random.default_rng(tile_len), N)
+    forms = [fmax_form(b0[r, t : t + tile_len], b1[r, t : t + tile_len], cs)
+             for r in range(4) for t in range(0, N, tile_len)]
+    tiles = -(-N // tile_len)
+    assert forms.count(False) == (3 if fmax_on_finite else 4 * tiles)
+    got, paths = emulate(b0, b1, cs, tile_len)
+    general = 3 if table_ok(cs) else 4 * tiles
+    assert paths["general"] == general
+    np.testing.assert_array_equal(got, plain(b0, b1, cs))
+    if name == "canonical":
+        assert len({c for c, *_ in general_map(ANGLES)}) == 2
