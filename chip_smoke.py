@@ -337,7 +337,7 @@ def cuda_ms(fn, reps: int = 5) -> float:
 def device_split(fn) -> dict:
     """Device ms of each CUDA kernel (and copy) that one warm call of
     ``fn`` runs, from the kernel events of a torch.profiler Chrome trace:
-    the kernel's own passes and the wrapper's framing copies apart.
+    the kernel's own launches and the wrapper's copies apart.
     ``drive`` takes these right after the main path: late in this script
     the profiler's sessions recorded no device events."""
     from torch.profiler import ProfilerActivity, profile
@@ -568,7 +568,7 @@ def drive_wider_surface(tmp, card, times, audio, src, wav_angles,
     with open(os.path.join(trace_dir, traces[0])) as f:
         events = json.load(f)["traceEvents"]
     names = {e["name"] for e in events if e.get("cat") == "kernel"}
-    found = sorted(k for k in ("sweep_kernel", "fft_forward", "conv_mix")
+    found = sorted(k for k in ("sweep_kernel", "stream_runs")
                    if any(k in n for n in names))
     print(f"profile hook: {len(events)} events, "
           f"{os.path.getsize(os.path.join(trace_dir, traces[0]))} bytes, "
@@ -1780,7 +1780,8 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
         plain_ms=cuda_ms(lambda: sc.hilbert_small_plain(x4, geom.parsiz), 2),
         **bound(nbytes(x4, h_small),
                 fir_conv_flops(x4.shape[0], n_4min, geom.parsiz, 0)),
-        library_ms=cuda_ms(lambda: conv_yardstick(x4, geom.parsiz), 2)))
+        library_ms=cuda_ms(lambda: conv_yardstick(x4, geom.parsiz), 2),
+        grid=sc.kernel_geometry(geom.parsiz // sc.P, False, dev)))
     del h_small, h_lib
 
     mix_out = sc.rotate_small(stems, turns, 3072)
@@ -1802,7 +1803,8 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
         **bound(nbytes(stems, turns, mix_out),
                 fir_conv_flops(stems.shape[0], stems.shape[-1], 3072, 3)),
         library_ms=cuda_ms(lambda: fc.fused_rotate_fir_plain(stems, turns,
-                                                             3072), 2)))
+                                                             3072), 2),
+        grid=sc.kernel_geometry(3072 // sc.P, True, dev)))
     del mix_out
 
     sm_err = float((sc.fused_stream_mix(fr256, params, sgeom.firlen)
@@ -1821,8 +1823,8 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
         **bound(2 * nbytes(fr256) + nbytes(params),
                 fir_conv_flops(1, fr256.shape[1] * sc.P, sgeom.firlen, 6)),
         library_ms=None))
-    # where a stream_conv call's time goes: its two passes and the
-    # wrapper's framing copies
+    # where a stream_conv call's time goes: its one kernel and whatever
+    # else the wrapper launches
     for name in ("stream_conv_hilbert", "stream_conv_mix",
                  "stream_conv_stream_mix"):
         print(f"{name} device ms by kernel: {json.dumps(splits[name])} "

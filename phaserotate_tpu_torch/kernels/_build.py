@@ -46,10 +46,18 @@ _SIGNATURES = {
     "prt_rotate_peak_sweep": (_P, _P, ctypes.c_longlong, ctypes.c_longlong,
                               _P, _P, ctypes.c_int, ctypes.c_longlong,
                               ctypes.c_int, ctypes.c_int, _P),
-    # frames, fir parts, twiddles, angle params (or NULL), spectrum
-    # scratch, out, batch, n_frames, n_segm, dry delay in frames, stream
-    "prt_stream_conv": (_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+    # x, its row stride, n, fir parts, twiddles, (angle, slope) pairs (or
+    # NULL), their row and frame strides, out, its row stride, samples
+    # written per row, rows, output frames per row, n_segm, output frame
+    # offset in the stream, dry delay in frames, grid, stream
+    "prt_stream_conv": (_P, ctypes.c_longlong, ctypes.c_longlong, _P, _P,
+                        _P, ctypes.c_longlong, ctypes.c_longlong, _P,
+                        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                         ctypes.c_int, ctypes.c_int, _P),
+    # n_segm, mix, int[5] out: blocks, threads, registers, local bytes,
+    # shared memory bytes
+    "prt_stream_conv_grid": (ctypes.c_int, ctypes.c_int, _P),
     # frames, FIR spectrum in position order, stage-major pass twiddles,
     # product twiddles, (ca, sa) per row (or NULL), run tails scratch,
     # out, rows, n_blocks, parsiz, dry delay, grid, stream

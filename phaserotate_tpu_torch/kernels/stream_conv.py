@@ -21,6 +21,7 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -42,6 +43,7 @@ __all__ = [
     "stream_mix_supported",
     "hilbert_small",
     "hilbert_small_plain",
+    "kernel_geometry",
     "rotate_small",
     "rotate_small_plain",
 ]
@@ -85,13 +87,14 @@ def _row_order() -> np.ndarray:
 
 @functools.lru_cache(maxsize=16)
 def _fir_parts(fir_taps: int, device: torch.device) -> torch.Tensor:
-    """(n_segm, _BINS, 2) float32 partition spectra of the FIR at P (the
-    reference's per-segment r2c transforms, src/phaserotate.c:396-401),
-    each row in the kernel's position order (:func:`_row_order`)."""
+    """(n_segm + 2, _BINS, 2) float32 partition spectra of the FIR at P
+    (the reference's per-segment r2c transforms, src/phaserotate.c:396-401),
+    each row in the kernel's position order (:func:`_row_order`), and two
+    zero rows that the kernel's look-ahead loads may read past the last."""
     spec = _partition_fir_spectra_np(fir_taps, P)[:, _row_order()]
-    out = np.zeros((spec.shape[0], _BINS, 2), np.float32)
-    out[:, : P + 1, 0] = spec.real
-    out[:, : P + 1, 1] = spec.imag
+    out = np.zeros((spec.shape[0] + 2, _BINS, 2), np.float32)
+    out[: spec.shape[0], : P + 1, 0] = spec.real
+    out[: spec.shape[0], : P + 1, 1] = spec.imag
     return torch.tensor(out, device=device)
 
 
@@ -102,36 +105,73 @@ def _require_cuda_f32(x: torch.Tensor) -> None:
         raise TypeError(f"expected float32, got {x.dtype}")
 
 
-def _frames(x: torch.Tensor, n_frames: int) -> torch.Tensor:
-    """(..., n) -> (rows, n_frames, P) contiguous, zero padded (rows by
-    count: an empty signal, n = 0, still has its rows)."""
-    n = x.shape[-1]
-    xp = torch.nn.functional.pad(x.reshape(x.shape[:-1].numel(), n),
-                                 (0, n_frames * P - n))
-    return xp.reshape(-1, n_frames, P).contiguous()
+@functools.lru_cache(maxsize=32)
+def kernel_geometry(ns: int, mix: bool = False,
+                    device: torch.device | None = None) -> dict:
+    """The kernel's launch geometry on ``device`` (the current CUDA device
+    by default) for ``ns`` partitions: ``blocks`` resident on the whole
+    card at once (the persistent grid), ``threads`` per block,
+    ``registers`` per thread, ``local_bytes`` per thread (spills) and
+    ``smem_bytes`` of dynamic shared memory per block."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    return _geometry(_build.lib(), ns, mix, dev)
 
 
-def _launch(frames: torch.Tensor, fir_taps: int,
-            angs: torch.Tensor | None) -> torch.Tensor:
-    """Run csrc/stream_conv.cu on (B, n_frames, P) frames; with ``angs``
-    (B, n_frames, 2) the output is mixed against the input delayed by
-    fir_taps/2."""
-    b, n_frames, _ = frames.shape
-    dev = frames.device
-    d_frames = (fir_taps // 2) // P if angs is not None else 0
+def _geometry(lib, ns: int, mix: bool, dev: torch.device) -> dict:
+    info = (ctypes.c_int * 5)()
+    with torch.cuda.device(dev):
+        _build.check(lib.prt_stream_conv_grid(ns, int(mix), info),
+                     "stream_conv geometry")
+    return dict(zip(("blocks", "threads", "registers", "local_bytes",
+                     "smem_bytes"), info))
+
+
+def _launch(x: torch.Tensor, fir_taps: int, n_out: int, out: torch.Tensor,
+            out_len: int, d_out: int = 0, angs: torch.Tensor | None = None,
+            ang_fs: int = 0, grid: int | None = None, lib=None) -> bool:
+    """Run csrc/stream_conv.cu on the rows of ``x`` (rows, n), read in
+    place at its row stride, into ``out`` (rows, >= out_len) at its row
+    stride: ``n_out`` output frames per row, output frame o the stream's
+    frame o + ``d_out``, samples below ``out_len`` written.  With ``angs``
+    (rows, ..., 2) (angle, slope) pairs, its frame stride ``ang_fs``, the
+    output is mixed against the input delayed by fir_taps/2.  ``grid``
+    blocks (default: the blocks resident on the card) each take one run
+    of the rows' frames; any grid gives the same output.  ``lib``: the
+    loaded library to launch from (the port's own by default; another
+    build of the source, to compare).  Returns whether it launched (not
+    for zero frames)."""
+    rows, n = x.shape
+    dev = x.device
+    ns = fir_taps // P
     fir = _fir_parts(fir_taps, dev)
-    spec = torch.empty((b, n_frames, _BINS, 2), dtype=torch.float32,
-                       device=dev)
-    out = torch.empty((b, n_frames, P), dtype=torch.float32, device=dev)
-    lib = _build.lib()
+    total = rows * n_out
+    if total == 0:
+        return False
+    mix = angs is not None
+    if grid is None:
+        geometry = (kernel_geometry(ns, mix, dev) if lib is None
+                    else _geometry(lib, ns, mix, dev))
+        grid = min(geometry["blocks"], total)
+    lib = _build.lib() if lib is None else lib
     with torch.cuda.device(dev):  # the C launch goes to the current one
         err = lib.prt_stream_conv(
-            frames.data_ptr(), fir.data_ptr(), _twiddles(dev).data_ptr(),
-            None if angs is None else angs.data_ptr(), spec.data_ptr(),
-            out.data_ptr(), b, n_frames, fir.shape[0], d_frames,
+            x.data_ptr(), x.stride(0), n, fir.data_ptr(),
+            _twiddles(dev).data_ptr(),
+            None if angs is None else angs.data_ptr(),
+            0 if angs is None else angs.stride(0) // 2, ang_fs,
+            out.data_ptr(), out.stride(0), out_len, rows, n_out, ns, d_out,
+            (fir_taps // 2) // P if mix else 0, grid,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "stream_conv")
-    return out
+    return True
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """(..., n) -> (rows, n), a view where the strides allow one, with
+    unit sample stride (rows by count: an empty signal, n = 0, still has
+    its rows)."""
+    x2 = x.reshape(x.shape[:-1].numel(), x.shape[-1])
+    return x2 if x2.shape[-1] <= 1 or x2.stride(-1) == 1 else x2.contiguous()
 
 
 def hilbert_small_plain(x: torch.Tensor, fir_taps: int) -> torch.Tensor:
@@ -153,11 +193,18 @@ def hilbert_small(x: torch.Tensor, fir_taps: int) -> torch.Tensor:
     if x.device.type == "cpu":
         return hilbert_small_plain(x, fir_taps)
     _require_cuda_f32(x)
-    lead, n = x.shape[:-1], x.shape[-1]
-    n_frames = -(-n // P) + fir_taps // P
-    out = _launch(_frames(x, n_frames), fir_taps, None)
-    _build.count_launch("hilbert_small")
-    return out.reshape(*lead, n_frames * P)
+    out = _hilbert_small_kernel(_rows(x), fir_taps)
+    return out.reshape(*x.shape[:-1], out.shape[-1])
+
+
+def _hilbert_small_kernel(x2: torch.Tensor, fir_taps: int) -> torch.Tensor:
+    """:func:`hilbert_small`'s launch on (rows, n): (rows, n_frames*P)."""
+    n_frames = -(-x2.shape[-1] // P) + fir_taps // P
+    out = torch.empty((x2.shape[0], n_frames * P), dtype=torch.float32,
+                      device=x2.device)
+    if _launch(x2, fir_taps, n_frames, out, n_frames * P):
+        _build.count_launch("hilbert_small")
+    return out
 
 
 def rotate_small_plain(x: torch.Tensor, turns: torch.Tensor,
@@ -188,18 +235,24 @@ def rotate_small(x: torch.Tensor, turns, firlen: int) -> torch.Tensor:
     if x.device.type == "cpu":
         return rotate_small_plain(x, turns, firlen)
     _require_cuda_f32(x)
-    lat = firlen // 2
-    lead, n = x.shape[:-1], x.shape[-1]
-    n_frames = -(-(n + lat) // P)  # stream must cover n + lat
-    frames = _frames(x, n_frames)
-    b = frames.shape[0]
     t = torch.as_tensor(turns, dtype=torch.float32, device=x.device)
-    t = t.broadcast_to(lead).reshape(b)
-    angs = torch.stack([t[:, None].expand(b, n_frames),
-                        t.new_zeros(b, n_frames)], dim=-1).contiguous()
-    out = _launch(frames, firlen, angs)
-    _build.count_launch("rotate_small")
-    return out.reshape(b, n_frames * P)[:, lat : lat + n].reshape(*lead, n)
+    t = t.broadcast_to(x.shape[:-1]).reshape(-1)
+    return _rotate_small_kernel(_rows(x), t, firlen).reshape(x.shape)
+
+
+def _rotate_small_kernel(x2: torch.Tensor, t: torch.Tensor,
+                         firlen: int) -> torch.Tensor:
+    """:func:`rotate_small`'s launch on (rows, n) with (rows,) turns:
+    (rows, n), written time-aligned."""
+    b, n = x2.shape
+    # one (angle, 0) pair per row, the same for every frame (stride 0)
+    angs = torch.stack([t, torch.zeros_like(t)], dim=-1)
+    out = torch.empty((b, n), dtype=torch.float32, device=x2.device)
+    # output frame o is the stream's frame o + lat/P: samples [lat, lat + n)
+    if _launch(x2, firlen, -(-n // P), out, n, d_out=(firlen // 2) // P,
+               angs=angs, ang_fs=0):
+        _build.count_launch("rotate_small")
+    return out
 
 
 # the JAX package's names of the two wrappers above
@@ -259,6 +312,19 @@ def fused_stream_mix(frames: torch.Tensor, angle_params: torch.Tensor,
     if angle_params.dtype != torch.float32 or \
             angle_params.device != frames.device:
         raise TypeError("angle_params must be float32 on the frames' device")
-    out = _launch(frames.contiguous(), firlen, angle_params.contiguous())
-    _build.count_launch("stream_mix")
+    return _stream_mix_kernel(frames, angle_params, firlen)
+
+
+def _stream_mix_kernel(frames: torch.Tensor, angle_params: torch.Tensor,
+                       firlen: int) -> torch.Tensor:
+    """:func:`fused_stream_mix`'s launch: the frames read in place as
+    (B, n_frames*P) rows."""
+    b, n_frames, _ = frames.shape
+    x2 = _rows(frames.reshape(b, n_frames * P))
+    angs = angle_params.contiguous().view(b, n_frames * 2)
+    out = torch.empty((b, n_frames, P), dtype=torch.float32,
+                      device=frames.device)
+    if _launch(x2, firlen, n_frames, out.view(b, n_frames * P),
+               n_frames * P, angs=angs, ang_fs=1):
+        _build.count_launch("stream_mix")
     return out

@@ -199,7 +199,13 @@ def stream_step(state: StreamState, frame: torch.Tensor, target_degrees,
                        tail=y[..., geom.parsiz :], angle=new_angle), out
 
 
-stream_step_batched = stream_step
+def stream_step_batched(state: StreamState, frames: torch.Tensor,
+                        target_degrees, geom: StreamGeometry
+                        ) -> Tuple[StreamState, torch.Tensor]:
+    """:func:`stream_step` under the JAX package's vmapped name and its
+    parameter names: ``frames`` (channels, parsiz), one frame per channel
+    of a batched ``state``."""
+    return stream_step(state, frames, target_degrees, geom)
 
 
 def stream_process(state: StreamState, frames: torch.Tensor, target_degrees,

@@ -123,6 +123,98 @@ def test_rotate_small(x, firlen):
     assert torch.equal(got[0], x[0])  # cos 0 = 1, sin 0 = 0 exactly
 
 
+@pytest.mark.parametrize("taps", [512, 3072, 8192, 16384])
+@pytest.mark.parametrize("n", [0, 1, 255, 257, 5003])
+def test_stream_conv_short_and_odd(dev, taps, n):
+    """ns = 2, 12, 32, 64 at n = 0, n < 256 and odd n (rows start at odd
+    elements, read in place); rotate_small writes (rows, n)."""
+    rng = np.random.default_rng(taps + n)
+    x = torch.from_numpy(rng.standard_normal((3, n)).astype(np.float32)).to(
+        dev)
+    got = sc.hilbert_small(x, taps)
+    want = sc.hilbert_small_plain(x, taps)
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() < 1e-5
+    turns = degrees_to_turns([0.0, 35.0, -120.0], device=dev)
+    got = sc.rotate_small(x, turns, taps)
+    assert got.shape == x.shape
+    if n:
+        want = sc.rotate_small_plain(x, turns, taps)
+        assert (got - want).abs().max().item() < 2e-5
+        assert torch.equal(got[0], x[0])
+
+
+@pytest.mark.parametrize("taps", [512, 3072, 16384])
+def test_stream_conv_any_grid_same_bits(dev, taps):
+    """Runs that cross row boundaries, a run per frame and one run for
+    everything give the same bits as the card's resident grid."""
+    rng = np.random.default_rng(taps)
+    n = 3001
+    x = torch.from_numpy(rng.standard_normal((5, n)).astype(np.float32)).to(
+        dev)
+    turns = torch.from_numpy(rng.uniform(-0.5, 0.5, 5).astype(
+        np.float32)).to(dev)
+    h = sc.hilbert_small(x, taps)
+    y = sc.rotate_small(x, turns, taps)
+    n_out = h.shape[-1] // sc.P
+    angs = torch.stack([turns, torch.zeros_like(turns)], dim=-1)
+    y_out = -(-n // sc.P)
+    for grid in (1, 2, 3, 7, 5 * y_out, 5 * n_out - 1):
+        out = torch.empty_like(h)
+        sc._launch(x, taps, n_out, out, n_out * sc.P, grid=grid)
+        assert torch.equal(out, h), grid
+        out = torch.empty_like(y)
+        sc._launch(x, taps, y_out, out, n, d_out=taps // 2 // sc.P,
+                   angs=angs, ang_fs=0, grid=min(grid, 5 * y_out))
+        assert torch.equal(out, y), grid
+
+
+def test_stream_conv_reads_views_in_place(x):
+    """A strided, unaligned view gives the bits of its contiguous copy."""
+    view = x[:, 7:-6]
+    assert not view.is_contiguous()
+    assert torch.equal(sc.hilbert_small(view, 3072),
+                       sc.hilbert_small(view.contiguous(), 3072))
+    turns = degrees_to_turns([10.0, 35.0, -120.0], device=x.device)
+    assert torch.equal(sc.rotate_small(view, turns, 3072),
+                       sc.rotate_small(view.contiguous(), turns, 3072))
+    frames = x[:, : 78 * sc.P].reshape(3, 78, sc.P)
+    params = torch.zeros(3, 78, 2, device=x.device)
+    params[..., 0] = 0.1
+    assert torch.equal(sc.fused_stream_mix(frames[:, 5:70], params[:, 5:70],
+                                           3072),
+                       sc.fused_stream_mix(frames[:, 5:70].contiguous(),
+                                           params[:, 5:70], 3072))
+
+
+def test_stream_conv_nan_input(x):
+    """A NaN reaches the frames its partitions reach and no other row."""
+    xn = x.clone()
+    xn[1, 4321] = float("nan")
+    for taps in (512, 8192):
+        got = sc.hilbert_small(xn, taps)
+        want = sc.hilbert_small_plain(xn, taps)
+        assert torch.equal(got.isnan(), want.isnan())
+        assert got.isnan().any() and not got[[0, 2]].isnan().any()
+        ok = ~want.isnan()
+        assert (got[ok] - want[ok]).abs().max().item() < 1e-5
+    turns = degrees_to_turns([10.0, 35.0, -120.0], device=x.device)
+    got = sc.rotate_small(xn, turns, 3072)
+    want = sc.rotate_small_plain(xn, turns, 3072)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert not got[[0, 2]].isnan().any()
+
+
+def test_stream_conv_geometry(dev):
+    """The persistent grid fills the card."""
+    for ns in (2, 12, 32, 64):
+        for mix in (False, True):
+            geo = sc.kernel_geometry(ns, mix, dev)
+            assert geo["blocks"] >= torch.cuda.get_device_properties(
+                dev).multi_processor_count, (ns, mix, geo)
+            assert geo["threads"] == 544, geo
+
+
 def test_launches_counted(x):
     _build.reset_launches()
     sc.hilbert_small(x, 1024)
@@ -140,13 +232,17 @@ def test_launches_counted(x):
 
 
 def test_rows_beyond_65535(dev):
-    """Rows ride gridDim.x: 65536 + 7 rows in one launch."""
+    """Any number of rows in one launch: 65536 + 7 rows."""
     rng = np.random.default_rng(7)
     rows = 65536 + 7
     xs = torch.from_numpy(
         rng.standard_normal((rows, 300)).astype(np.float32)).to(dev)
     got = sc.hilbert_small(xs, 512)
     assert (got - sc.hilbert_small_plain(xs, 512)).abs().max() < 1e-5
+    turns = torch.from_numpy(rng.uniform(-0.5, 0.5, rows).astype(
+        np.float32)).to(dev)
+    got = sc.rotate_small(xs, turns, 512)
+    assert (got - sc.rotate_small_plain(xs, turns, 512)).abs().max() < 2e-5
     cs = all_angle_cos_sin(dev)
     assert torch.equal(rotate_peak_sweep_kernel(xs[:, 1:], xs[:, :-1], cs),
                        rotate_peak_sweep_plain(xs[:, 1:], xs[:, :-1], cs))

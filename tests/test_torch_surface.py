@@ -14,8 +14,10 @@ the CPU.
 """
 
 import importlib
+import inspect
 import json
 import os
+import tomllib
 
 import numpy as np
 import pytest
@@ -77,6 +79,22 @@ SURFACES = ["", "core", "ops", "search", "search.sweep", "search.packed",
             "io.playback"]
 
 
+# parameters of a JAX callable that its port leaves out, each with the
+# reason; var-positional and var-keyword parameters (``*arrays``,
+# ``**kwargs``) name nothing a caller passes by keyword and are not
+# compared
+PARAMS_LEFT_BEHIND = {
+    "t_blocks": "the Pallas grid's frame tile: each CUDA kernel sizes its "
+                "own tiles and grid",
+    "bf16": "the one-pass bf16 matrix-unit mode: left behind with the "
+            "bf16= sweep flag (ROADMAP.md)",
+    "tile_rows": "the Pallas peak kernel's row tile",
+    "chunk": "ops.rotated_peak_sweep's angle chunks, which bound XLA's "
+             "memory: the sweep kernel takes the whole table at once",
+    "fir_kk": "the 4-step matmul FFT's [k1][k2] FIR layout (fir_kk_layout)",
+}
+
+
 def _pair(sub):
     dot = "." + sub if sub else ""
     return (importlib.import_module("phaserotate_tpu" + dot),
@@ -107,6 +125,87 @@ def test_public_name_of_the_jax_package_exists(surface, name):
     if name != "__version__":
         assert name in p_mod.__all__ or (sub, name) == ("search",
                                                         "refine_angle")
+
+
+def _signature(obj):
+    try:
+        return inspect.signature(obj)
+    except (TypeError, ValueError):  # a builtin without one
+        return None
+
+
+def _param_cases():
+    cases = []
+    for sub in SURFACES:
+        j_mod, _ = _pair(sub)
+        for name in sorted(j_mod.__all__):
+            obj = getattr(j_mod, name, None)
+            if (name in LEFT_BEHIND.get(sub, {}) or not callable(obj)
+                    or _signature(obj) is None):
+                continue
+            cases.append((sub or "top", name))
+    return cases
+
+
+@pytest.mark.parametrize("surface,name", _param_cases())
+def test_parameter_names_of_the_jax_package_exist(surface, name):
+    """A keyword call that works on the JAX package works on the port:
+    every named parameter of a public callable exists in its port, apart
+    from PARAMS_LEFT_BEHIND."""
+    sub = "" if surface == "top" else surface
+    j_mod, p_mod = _pair(sub)
+    named = (inspect.Parameter.VAR_POSITIONAL, inspect.Parameter.VAR_KEYWORD)
+    params = _signature(getattr(j_mod, name)).parameters.values()
+    want = [p.name for p in params
+            if p.kind not in named and p.name not in PARAMS_LEFT_BEHIND]
+    got = _signature(getattr(p_mod, name))
+    assert got is not None, f"{name} has no signature in the port"
+    missing = [p for p in want if p not in got.parameters]
+    assert not missing, f"{sub or 'top'}.{name} lacks {missing}"
+
+
+def test_left_out_parameters_are_parameters_of_the_jax_package():
+    seen = set()
+    for surface, name in _param_cases():
+        j_mod, _ = _pair("" if surface == "top" else surface)
+        seen |= set(_signature(getattr(j_mod, name)).parameters)
+    assert set(PARAMS_LEFT_BEHIND) <= seen
+    assert all(PARAMS_LEFT_BEHIND.values())
+
+
+def test_stream_step_batched_takes_frames_by_keyword():
+    from phaserotate_tpu_torch.stream import engine
+
+    g = p_core.stream_geometry_for_rate(48000)
+    frames = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, g.parsiz)).astype(np.float32))
+    state = engine.init_state(g, (2,), device="cpu")
+    _, by_name = engine.stream_step_batched(
+        state=state, frames=frames, target_degrees=torch.tensor([10.0, 20.0]),
+        geom=g)
+    _, by_place = engine.stream_step(state, frames,
+                                     torch.tensor([10.0, 20.0]), g)
+    assert torch.equal(by_name, by_place)
+
+
+def _scripts():
+    with open(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "pyproject.toml"), "rb") as f:
+        return tomllib.load(f)["project"]["scripts"]
+
+
+@pytest.mark.parametrize("script", sorted(
+    k for k, v in _scripts().items() if v.startswith("phaserotate_tpu.")))
+def test_every_script_has_a_torch_twin(script):
+    """Each entry point of the JAX package has a ``-torch`` script whose
+    target is the port's module of the same name, importable and
+    callable."""
+    scripts = _scripts()
+    twin = scripts.get(f"{script}-torch")
+    assert twin == scripts[script].replace("phaserotate_tpu.",
+                                           "phaserotate_tpu_torch.", 1)
+    module, attr = twin.split(":")
+    assert callable(getattr(importlib.import_module(module), attr))
 
 
 def test_left_behind_names_are_names_of_the_jax_package():
