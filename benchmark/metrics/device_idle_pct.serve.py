@@ -1,0 +1,8 @@
+"""Share of the traced window in which no kernel or copy ran on the card,
+in the daemon's process (layer device)."""
+
+from harness.readers import idle_pct
+
+
+def read(trace):
+    return idle_pct(trace)
