@@ -579,32 +579,6 @@ def drive_wider_surface(tmp, card, times, audio, src, wav_angles,
     return dict(_build.launches)
 
 
-@contextlib.contextmanager
-def wire_log(log: list):
-    """Record what each fleet dispatch ships: (transport, wire bytes,
-    samples).  The fleet looks its two sweep entry points up at call
-    time, so recording wrappers around them see every batch."""
-    from phaserotate_tpu_torch.search import packed, sweep
-
-    saved = (packed.sweep_peaks_aux_packed, sweep.sweep_peaks_aux_pcm16)
-
-    def packed_logged(pk, *a, **kw):
-        log.append(("packed", pk.wire_bytes,
-                    int(np.prod(pk.shape[:-1])) * pk.n))
-        return saved[0](pk, *a, **kw)
-
-    def pcm16_logged(x16, *a, **kw):
-        log.append(("pcm16", x16.nbytes, x16.size))
-        return saved[1](x16, *a, **kw)
-
-    packed.sweep_peaks_aux_packed = packed_logged
-    sweep.sweep_peaks_aux_pcm16 = pcm16_logged
-    try:
-        yield
-    finally:
-        packed.sweep_peaks_aux_packed, sweep.sweep_peaks_aux_pcm16 = saved
-
-
 def make_catalogue(tmp: str, rng, dev) -> list:
     """48 stereo 48 kHz 16-bit WAV files from the seed, in two buckets of
     the fleet at blksiz 8192: 40 short ones (bucket of 512 blocks, 87.4 s)
@@ -745,6 +719,8 @@ def drive_catalogue(tmp, dev, card, times, x4, fleet, stems, stem_degs,
         sharded_sweep_peaks)
     from phaserotate_tpu_torch.search import (
         find_min_peak_angle, select_min_peak_angles_batch, sweep_peaks_aux)
+    from phaserotate_tpu_torch.utils.profiling import (CountRecord, drain,
+                                                       recording)
 
     rng = np.random.default_rng(SEED + 9)
     cat = os.path.join(tmp, "catalogue")
@@ -813,22 +789,29 @@ def drive_catalogue(tmp, dev, card, times, x4, fleet, stems, stem_degs,
     results, tables = {}, {}
     for transport in ("pcm16", "packed", "auto"):
         ck = os.path.join(tmp, f"fleet_{transport}.npz")
-        log: list = []
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        with wire_log(log), phase(f"fleet_analyze_{transport}", card, times):
+        drain()
+        with recording(), phase(f"fleet_analyze_{transport}", card, times):
             results[transport] = pfleet.analyze_paths(
                 paths, batch=batch, checkpoint=ck, transport=transport)
         peak = torch.cuda.max_memory_allocated()
         with np.load(ck) as z:
             tables[transport] = {k: z[k] for k in z.files}
         wall = times[f"fleet_analyze_{transport}"]
-        kinds = [k for k, _, _ in log]
-        wire = sum(b for _, b, _ in log)
-        samples = sum(n for _, _, n in log)
+        # what each batch shipped, from the fleet's own spans and counters
+        counted: dict = {}
+        kinds = []
+        for r in drain():
+            if isinstance(r, CountRecord):
+                counted.setdefault(r.name, []).append(r.n)
+            elif r.name == "fleet.pack":
+                kinds.append(r.attrs["transport"])
+        wire = sum(counted["fleet.wire_bytes"])
+        samples = sum(counted["fleet.pcm16_bytes"]) // 2
         print(f"fleet analyze {transport}: {len(paths) / wall:.2f} files/s, "
               f"{audio_s / wall:.1f}x realtime, {wall:.6f} s; "
-              f"{len(log)} batches ({kinds.count('packed')} packed, "
+              f"{len(kinds)} batches ({kinds.count('packed')} packed, "
               f"{kinds.count('pcm16')} pcm16), {wire} wire bytes, "
               f"{8.0 * wire / samples:.4f} bits/sample of the padded batch; "
               f"peak device memory {peak} bytes ({peak - base} above the "

@@ -32,11 +32,23 @@ Sweeps persist via --checkpoint (utils/checkpoint.SweepCheckpoint):
 interrupted fleets resume, and selection reruns (different stride/-l)
 reuse stored tables without touching the device.  A checkpoint written
 by either package resumes in the other.
+
+Tracing (utils/profiling): the staging thread (``fleet-stage``) records
+``fleet.stage`` per batch, ``fleet.decode`` per file and ``fleet.pack``
+per batch (attribute ``transport``: packed or pcm16); the dispatch loop
+records ``fleet.stage_wait`` (waiting for the staging thread),
+``fleet.dispatch`` (transfer, unpack, sweep enqueue) and
+``fleet.readback``; each batch counts ``fleet.wire_bytes`` and
+``fleet.pcm16_bytes``.  They record only under a ``torch.profiler``
+session or a ``recording()`` scope; ``PHASEROTATE_TPU_PROFILE=<dir>``
+writes a profile of the whole command as a Chrome trace into ``<dir>``,
+the spans of both threads beside the kernels.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -47,6 +59,7 @@ from .core.angles import SUBSAMPLE
 from .core.device import resolve_device
 from .core.sizes import offline_geometry
 from .search.minimize import SearchResult, select_min_peak_angles_batch
+from .utils.profiling import count, device_trace, span
 
 __all__ = ["analyze_paths", "apply_paths", "main"]
 
@@ -136,42 +149,54 @@ def analyze_paths(
             continue
         buckets.setdefault(key, []).append(p)
 
-    pool = ThreadPoolExecutor(1)
+    pool = ThreadPoolExecutor(1, thread_name_prefix="fleet-stage")
 
     def stage(group: List[str], key):
         """Decode a batch; returns the transport object to dispatch —
         an int16 array (pcm16) or a PackedChunk.  Runs on the staging
-        thread (numpy and the host library only, no torch call), so the
-        pack overlaps the previous batch's device pass."""
-        rate, channels, n_pad = key
-        buf = np.zeros((len(group), channels, n_pad), np.int16)
-        for i, p in enumerate(group):
-            audio = read_audio_pcm16(p)[0]
-            buf[i, :, : min(audio.shape[1], n_pad)] = \
-                audio[:, :n_pad]
-        if transport == "packed":
-            return pack_residual(buf)
-        if transport == "auto":
-            scratch = np.empty(
-                max(1 << 16, buf.size * 16 // 32), np.int32)
-            pk = pack_adaptive(buf, scratch)
-            if pk is not None:
-                return pk
-        return buf
+        thread (numpy and the host library only; no torch call but the
+        spans' ``record_function`` under a profiler session), so the pack
+        overlaps the previous batch's device pass."""
+        with span("fleet.stage"):
+            rate, channels, n_pad = key
+            buf = np.zeros((len(group), channels, n_pad), np.int16)
+            for i, p in enumerate(group):
+                with span("fleet.decode"):
+                    audio = read_audio_pcm16(p)[0]
+                buf[i, :, : min(audio.shape[1], n_pad)] = \
+                    audio[:, :n_pad]
+            with span("fleet.pack") as packing:
+                obj = buf
+                if transport == "packed":
+                    obj = pack_residual(buf)
+                elif transport == "auto":
+                    scratch = np.empty(
+                        max(1 << 16, buf.size * 16 // 32), np.int32)
+                    pk = pack_adaptive(buf, scratch)
+                    if pk is not None:
+                        obj = pk
+                packed = obj is not buf
+                packing.set(transport="packed" if packed else "pcm16")
+            count("fleet.wire_bytes",
+                  obj.wire_bytes if packed else buf.nbytes)
+            count("fleet.pcm16_bytes", buf.nbytes)
+            return obj
 
     def dispatch(obj, geom):
         from .search.packed import PackedChunk
 
-        if isinstance(obj, PackedChunk):
-            return sweep_peaks_aux_packed(obj, geom, device=device)
-        return sweep_peaks_aux_pcm16(obj, geom, device=device)
+        with span("fleet.dispatch"):
+            if isinstance(obj, PackedChunk):
+                return sweep_peaks_aux_packed(obj, geom, device=device)
+            return sweep_peaks_aux_pcm16(obj, geom, device=device)
 
     def finish(pending, rate) -> None:
         """Read one in-flight sweep back (the batch's only
         synchronisation) and emit its selections."""
         names, handles = pending
-        tables = handles[0].cpu().numpy()
-        rot0 = handles[1].cpu().numpy()
+        with span("fleet.readback"):
+            tables = handles[0].cpu().numpy()
+            rot0 = handles[1].cpu().numpy()
         sel = select_min_peak_angles_batch(
             tables, stride=stride, link_channels=link_channels,
             rot0=rot0)
@@ -196,7 +221,8 @@ def analyze_paths(
             # returns, so the buffer need not outlive it)
             pending = None
             for bi, names in enumerate(batches):
-                obj = fut.result()
+                with span("fleet.stage_wait"):
+                    obj = fut.result()
                 if bi + 1 < len(batches):
                     fut = pool.submit(stage, batches[bi + 1], key)
                 handles = dispatch(obj, geom)
@@ -212,8 +238,6 @@ def analyze_paths(
 
 def _apply_one(path: str, outdir: str, result: SearchResult,
                blksiz: int, device=None) -> str:
-    import os
-
     from .io import read_audio, write_audio
     from .search.sweep import apply_angles
 
@@ -249,8 +273,6 @@ def apply_paths(
 
     Returns {path: written path}.
     """
-    import os
-
     from .io import read_audio, write_audio
     from .search.sweep import apply_angles
 
@@ -323,7 +345,17 @@ def apply_paths(
 
 def main(argv=None, device=None) -> int:
     """Run the command line ``argv``; ``device`` is where the audio is
-    processed (default: the CUDA device)."""
+    processed (default: the CUDA device).  ``PHASEROTATE_TPU_PROFILE=<dir>``
+    writes a ``torch.profiler`` Chrome trace of the run into ``<dir>``, the
+    ``fleet.*`` spans beside the kernels, as the CLI does."""
+    profile_dir = os.environ.get("PHASEROTATE_TPU_PROFILE")
+    if profile_dir:
+        with device_trace(profile_dir):
+            return _main(argv, device)
+    return _main(argv, device)
+
+
+def _main(argv=None, device=None) -> int:
     ap = argparse.ArgumentParser(
         prog="phase-rotate-fleet",
         description="Batched minimum-peak analysis over many files "

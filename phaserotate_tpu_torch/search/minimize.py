@@ -31,6 +31,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from ..core.angles import MAXSAMPLE, SUBSAMPLE
+from ..utils.profiling import span
 
 __all__ = [
     "SearchResult",
@@ -105,8 +106,14 @@ def select_min_peak_angles_batch(
 
     Returns one :class:`SearchResult` per file, bit-matching the CLI.
     The comparison math runs in float64 exactly like the C++ (float
-    table values promoted through ``double`` expressions).
+    table values promoted through ``double`` expressions).  Each call is
+    the span ``search.select`` (utils/profiling).
     """
+    with span("search.select"):
+        return _select_batch(peak_tables, stride, link_channels, rot0)
+
+
+def _select_batch(peak_tables, stride, link_channels, rot0):
     _validate_stride(stride)
     tables = np.ascontiguousarray(
         np.asarray(peak_tables, np.float32), dtype=np.float32

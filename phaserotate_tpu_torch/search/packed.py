@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..utils.profiling import span
 
 __all__ = ["PackedChunk", "pack_residual", "pack_adaptive",
            "unpack_residual", "sweep_peaks_aux_packed",
@@ -347,14 +348,14 @@ def sweep_peaks_aux_packed(pk: PackedChunk, geom, chunk: int = 4096,
     Value-identical to ``sweep_peaks_aux_pcm16`` of the same PCM (the
     unpack reproduces the int16 values exactly, then dequantizes with
     the same 1/32768).  The chunk's arrays go to ``device`` (default: the
-    CUDA device; ``"cpu"`` for the CPU) and are unpacked there.
+    CUDA device; ``"cpu"`` for the CPU) and are unpacked there, under
+    the span ``packed.unpack`` (its device time on a card).
     """
     from .sweep import _sweep_impl
 
     dev = resolve_device(device)
-    x = unpack_residual(
-        torch.as_tensor(pk.words, device=dev),
-        torch.as_tensor(pk.widths, device=dev),
-        torch.as_tensor(pk.woffs, device=dev),
-        torch.as_tensor(pk.order, device=dev), pk.n)
+    wire = [torch.as_tensor(a, device=dev)
+            for a in (pk.words, pk.widths, pk.woffs, pk.order)]
+    with span("packed.unpack", device=dev):
+        x = unpack_residual(*wire, pk.n)
     return _sweep_impl(x.reshape(pk.shape), geom, chunk)
