@@ -40,7 +40,10 @@ then, on the first CUDA device:
    step by step (decode, pack, copy, unpack, sweep, selection), after
    the counts are read and with ``hilbert_small`` and the sweep kernel
    held to their plain twins at the fleet's batch shapes (8 x 2 x
-   4,194,304 and 8 x 2 x 8,388,608, zero-padded tails included); and the
+   4,194,304 and 8 x 2 x 8,388,608, zero-padded tails included); one
+   catalogue-sized batch (8 x 2 x 16,777,216) packed by the port's host
+   packer and by ``native/wire_pack.cc``, word for word the same, with
+   both packers' MB/s and the port's workers; and the
    ``parallel`` package on meshes that name the card four (three) times:
    sample sharding of the 4-minute file (1-D and 2 x 2) within 2e-5 of
    the unsharded sweep, angle sharding on three and on four shards (the
@@ -738,8 +741,8 @@ def drive_catalogue(tmp, dev, card, times, x4, fleet, stems, stem_degs,
 
     # ---- the fleet CLI as a user runs it (subprocesses) ----
     ck_cli = os.path.join(tmp, "fleet_cli.npz")
-    # pcm16 by name: on this host the default, auto, spends 4-5x the time
-    # packing (the fleet_analyze phases below time all three transports)
+    # pcm16 by name (the fleet_analyze phases below time all three
+    # transports)
     flags = ["--batch", str(batch), "--checkpoint", ck_cli,
              "--transport", "pcm16"]
     with phase("fleet_cli_analyze_subprocess", card, times):
@@ -935,7 +938,66 @@ def drive_catalogue(tmp, dev, card, times, x4, fleet, stems, stem_degs,
                          ("long", 40)):
         staging_breakdown(paths[first : first + batch], geom, dev, card,
                           label)
+    host_packers(dev, card, times)
     return counts
+
+
+def host_packers(dev, card: str, times: dict) -> None:
+    """One catalogue-sized batch, 8 stereo songs of 200-340 s made from
+    the seed and zero-padded to the fleet's bucket of 2^24 samples, packed
+    by the port's host packer (``pack_adaptive`` into a fresh scratch, as
+    the fleet calls it) and by ``native/wire_pack.cc``: the same words,
+    widths, offsets and orders.  Prints both packers' MB/s of pcm16 and
+    the workers the port's ran on (its ``packed.pack_workers``)."""
+    import torch
+
+    from phaserotate_tpu_torch.io import native
+    from phaserotate_tpu_torch.search.packed import _grid_pad, pack_adaptive
+    from phaserotate_tpu_torch.utils.profiling import (CountRecord, drain,
+                                                       recording)
+
+    rng = np.random.default_rng(SEED + 17)
+    n_pad = 1 << 24
+    buf = np.zeros((8, 2, n_pad), np.int16)
+    for i, secs in enumerate(np.linspace(200.0, 340.0, 8)):
+        n = int(secs * RATE)
+        x = music_batch(rng, (2,), n, dev)
+        x *= 0.9 / x.abs().max()
+        buf[i, :, :n] = torch.round(x * 32767.0).to(torch.int16).cpu().numpy()
+        del x
+    streams = buf.reshape(-1, n_pad)
+    S, nb = streams.shape[0], n_pad // 4096
+    words = np.empty(_grid_pad(S * nb * 2048 + 1), np.int32)
+    widths = np.empty((S, nb), np.int32)
+    woffs = np.empty((S, nb), np.int32)
+    order = np.empty(S, np.int32)
+    t0 = time.perf_counter()
+    total = native.pack_residual_raw(streams, words, widths, woffs, order)
+    t_cc = time.perf_counter() - t0
+    check(total > 0, "native/wire_pack.cc did not pack")
+    words = words[: _grid_pad(total + 1)]
+    words[total:] = 0
+    drain()
+    with recording():
+        scratch = np.empty(max(1 << 16, buf.size * 16 // 32), np.int32)
+        t0 = time.perf_counter()
+        pk = pack_adaptive(buf, scratch)
+        t_port = time.perf_counter() - t0
+    workers = [r.n for r in drain() if isinstance(r, CountRecord)
+               and r.name == "packed.pack_workers"]
+    check(pk is not None, "the port's packer shipped pcm16")
+    check(len(workers) == 1, f"packed.pack_workers counted {workers}")
+    check(all(np.array_equal(a, b) for a, b in zip(
+        (pk.words, pk.widths, pk.woffs, pk.order),
+        (words, widths, woffs, order))),
+        "the host packers' wires differ")
+    times["host_pack_batch"] = t_port
+    mb = buf.nbytes / 1e6
+    print(f"host packers, one batch {buf.shape} ({buf.nbytes} bytes of "
+          f"pcm16, {pk.wire_bytes} packed), the same words: "
+          f"native/wire_pack.cc {t_cc:.6f} s, {mb / t_cc:.1f} MB/s; the "
+          f"port's {t_port:.6f} s, {mb / t_port:.1f} MB/s on {workers[0]} "
+          f"workers of {len(os.sched_getaffinity(0))} CPUs [{card}]")
 
 
 SERVE_SESSIONS = 8   # batched prt_bridge sessions on the first daemon

@@ -10,8 +10,9 @@ per sample over the host-to-device link; this transport ships fewer,
               0..3 — the same family as FLAC's fixed predictors) +
               per-4096-sample-block minimal bit width, packed little-
               endian into an int32 word stream (numpy, or the host
-              library's packer; the pack rides the fleet's decode thread,
-              under the device pass of the previous batch)
+              packer csrc/wire_pack.cc, block by block on the host's
+              cores; the pack rides the fleet's staging thread, under
+              the device pass of the previous batch)
   device side unpack with shifts and masks (a 2-word gather per sample),
               reconstruct with ``torch.cumsum`` (the exact inverse of the
               k-th difference is k prefix sums), dequantize to float32;
@@ -40,7 +41,8 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..utils.profiling import span
+from ..utils.profiling import count, span
+from . import _wirepack
 
 __all__ = ["PackedChunk", "pack_residual", "pack_adaptive",
            "unpack_residual", "sweep_peaks_aux_packed",
@@ -142,20 +144,16 @@ def pack_residual(x16: np.ndarray,
     must not rewrite the buffer while a device transfer of the view may
     be in flight.
 
-    ``native`` selects the host library's packer (native/wire_pack.cc:
-    bit-identical, far faster than numpy, GIL released): None = use it
-    when built, True = require it, False = numpy reference path.
+    ``native`` selects the host packer (csrc/wire_pack.cc: bit-identical
+    to the numpy path, far faster, GIL released): None uses it, True
+    requires it (the same: a failed build of it raises), False takes the
+    numpy reference path.
     """
     x16 = np.ascontiguousarray(x16, np.int16)
     shape = x16.shape
     n = shape[-1]
     if native is not False:
-        pk = _pack_residual_native(x16.reshape(-1, n), out_words, n,
-                                   shape)
-        if pk is not None:
-            return pk
-        if native:
-            raise RuntimeError("native wire pack unavailable")
+        return _pack_residual_host(x16.reshape(-1, n), out_words, n, shape)
     streams = x16.reshape(-1, n).astype(np.int32)
     S = streams.shape[0]
     nb = -(-n // BLOCK)
@@ -215,28 +213,35 @@ def pack_residual(x16: np.ndarray,
                        order=order, n=n, shape=shape)
 
 
-def _pack_residual_native(streams16: np.ndarray,
-                          out_words: np.ndarray | None,
-                          n: int, shape) -> PackedChunk | None:
-    """wire_pack.cc path of :func:`pack_residual` (None if unbuilt)."""
-    from ..io.native import pack_residual_raw
-
-    S = streams16.shape[0]
+def _host_layout(streams16: np.ndarray):
+    """Pass 1 of the host packer on (S, n) int16: (widths, woffs, order,
+    total words, workers), the workers counted as ``packed.pack_workers``
+    once per pack."""
+    S, n = streams16.shape
     nb = -(-n // BLOCK)
-    # worst case: the chosen order never beats order 0's <= 16 b/s
-    cap = _grid_pad(S * nb * (BLOCK // 2) + 1)
-    if out_words is not None and out_words.size >= cap:
-        words = out_words[:cap]
-    else:
-        words = np.empty(cap, np.int32)
+    workers = max(1, min(_wirepack.workers_for(S * nb), S * nb))
+    count("packed.pack_workers", workers)
     widths = np.empty((S, nb), np.int32)
     woffs = np.empty((S, nb), np.int32)
     order = np.empty(S, np.int32)
-    total = pack_residual_raw(streams16, words, widths, woffs, order)
-    if total < 0:
-        return None
+    total = _wirepack.layout(streams16, widths, woffs, order, workers)
+    return widths, woffs, order, total, workers
+
+
+def _pack_residual_host(streams16: np.ndarray,
+                        out_words: np.ndarray | None,
+                        n: int, shape) -> PackedChunk:
+    """The host packer's path of :func:`pack_residual`."""
+    widths, woffs, order, total, workers = _host_layout(streams16)
+    S, nb = widths.shape
     wpad = _grid_pad(total + 1)
-    words = words[:wpad]
+    # worst case: the chosen order never beats order 0's <= 16 b/s
+    cap = _grid_pad(S * nb * (BLOCK // 2) + 1)
+    if out_words is not None and out_words.size >= cap:
+        words = out_words[:wpad]
+    else:
+        words = np.empty(wpad, np.int32)
+    _wirepack.fill(streams16, widths, woffs, order, words, total, workers)
     words[total:] = 0  # slack word + grid padding
     return PackedChunk(words=words, widths=widths, woffs=woffs,
                        order=order, n=n, shape=shape)
@@ -252,37 +257,29 @@ def pack_adaptive(x16: np.ndarray, scratch: np.ndarray,
                   threshold: float = 0.9) -> PackedChunk | None:
     """Adaptive transport decision: pack iff it beats pcm16 by margin.
 
-    Runs the native packer with ``scratch`` (int32) as both the word
-    budget and the output buffer: the budget is ``threshold`` x the
-    pcm16 wire size, so content whose residuals don't compress (fully
-    noise-dominated material) aborts the pack mid-way and ships the
-    plain 16-bit samples instead — the fleet never pays wire for a
-    transport that doesn't win.  The margin is there because a pack that
-    saves only a few percent of the bytes costs more in pack and unpack
-    time than the link gives back.  Returns None when pcm16 should be
-    shipped (budget exceeded, or no native packer — the numpy pack is
-    slower than the wire it would save).
+    Runs the host packer's first pass, which gives the packed size
+    before any word is written, against a budget of ``threshold`` x the
+    pcm16 wire size: content whose residuals don't compress (fully
+    noise-dominated material) stops there and ships the plain 16-bit
+    samples instead, so the fleet never pays wire for a transport that
+    doesn't win.  The margin is there because a pack that saves only a
+    few percent of the bytes costs more in pack and unpack time than the
+    link gives back.  Otherwise the words are written into ``scratch``
+    (int32), which must hold the padded words.  Returns None when pcm16
+    should be shipped: over the budget, or more words than ``scratch``
+    holds.
     """
-    from ..io.native import pack_residual_raw
-
     shape = x16.shape
     n = shape[-1]
-    streams = x16.reshape(-1, n)
+    streams = np.ascontiguousarray(x16.reshape(-1, n), np.int16)
     S = streams.shape[0]
-    nb = -(-n // BLOCK)
     budget = int(threshold * S * n * 16) // 32
-    cap = min(scratch.size, _grid_pad(budget + 1))
-    widths = np.empty((S, nb), np.int32)
-    woffs = np.empty((S, nb), np.int32)
-    order = np.empty(S, np.int32)
-    total = pack_residual_raw(streams, scratch[:cap], widths, woffs,
-                              order)
-    if total < 0 or total > budget:
-        return None
+    widths, woffs, order, total, workers = _host_layout(streams)
     wpad = _grid_pad(total + 1)
-    if wpad > scratch.size:
+    if total > budget or wpad > scratch.size:
         return None
     words = scratch[:wpad]
+    _wirepack.fill(streams, widths, woffs, order, words, total, workers)
     words[total:] = 0
     return PackedChunk(words=words, widths=widths, woffs=woffs,
                        order=order, n=n, shape=shape)

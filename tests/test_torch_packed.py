@@ -2,10 +2,12 @@
 package's: one wire format, bit for bit.
 
 A ``PackedChunk`` packed by either package unpacks in the other to the
-same int16 values; the port's packers (numpy and the host library) equal
-the JAX package's word for word; and the packed sweep is ``torch.equal``
-to the pcm16 sweep of the same PCM.  Everything is exact: integer
-arithmetic, then one multiplication by 2**-15.
+same int16 values; the port's packers (numpy and the host packer
+csrc/wire_pack.cc, on any number of workers) equal the JAX package's and
+native/wire_pack.cc's word for word; ``pack_adaptive`` ships pcm16 on
+exactly the inputs where the wire_pack.cc pack did; and the packed sweep
+is ``torch.equal`` to the pcm16 sweep of the same PCM.  Everything is
+exact: integer arithmetic, then one multiplication by 2**-15.
 """
 
 import jax.numpy as jnp
@@ -16,6 +18,7 @@ import torch
 from phaserotate_tpu.search import packed as j_packed
 from phaserotate_tpu_torch.core.sizes import OfflineGeometry
 from phaserotate_tpu_torch.io import native
+from phaserotate_tpu_torch.search import _wirepack
 from phaserotate_tpu_torch.search import packed as p_packed
 from phaserotate_tpu_torch.search.packed import (
     BLOCK,
@@ -50,6 +53,19 @@ def _case(name):
     if name.startswith("len"):
         return rng.integers(-32768, 32768, (2, int(name[3:])), np.int16)
     t = np.arange(4 * BLOCK)
+    tn = np.arange(n)
+    orders = [  # a stream whose best order is 0, 1, 2, 3
+        rng.integers(-32768, 32768, n, np.int16),
+        np.clip(np.cumsum(rng.integers(-20, 21, n)), -32768,
+                32767).astype(np.int16),
+        np.rint(30000 * np.sin(0.002 * tn)).astype(np.int16),
+        np.rint(30000 * np.sin(0.02 * tn)).astype(np.int16)]
+    if name.startswith("order"):
+        return orders[int(name[5:])][None]
+    if name == "one_stream":
+        return (20000 * np.sin(t / 300.0)).astype(np.int16)[None]
+    if name == "batch_of_orders":
+        return np.stack(orders + [np.zeros(n, np.int16), _impulses()])[None]
     return {
         "silence": np.zeros(n, np.int16),
         "full_scale_high": np.full(n, 32767, np.int16),
@@ -71,6 +87,70 @@ CASES = ["random", "silence", "full_scale_high", "full_scale_low",
          "nyquist_square", "clipped_ramp", "impulses", "slow_sine",
          "mixed_orders"] + [
     f"len{n}" for n in (1, 31, BLOCK - 1, BLOCK, BLOCK + 1, 2 * BLOCK + 333)]
+
+
+# The host packer's cases besides CASES: fewer than 4 samples, one stream,
+# a stream of each order (order0 is white noise at full scale), and a
+# batch of those with silence and impulses.
+HOST_CASES = CASES + ["len2", "len3", "one_stream", "order0", "order1",
+                      "order2", "order3", "batch_of_orders"]
+
+
+def _force_workers(monkeypatch, workers):
+    """The host packer on ``workers`` threads (an int, or "more": five
+    more than the pack has blocks)."""
+    monkeypatch.setattr(
+        _wirepack, "workers_for",
+        lambda blocks: blocks + 5 if workers == "more" else workers)
+
+
+def _wire_pack_cc(x16):
+    """native/wire_pack.cc's pack of ``x16`` (the oracle)."""
+    assert native.available(), "native/wire_pack.cc did not build"
+    shape = x16.shape
+    n = shape[-1]
+    streams = np.ascontiguousarray(x16.reshape(-1, n))
+    S = streams.shape[0]
+    nb = -(-n // BLOCK)
+    words = np.empty(p_packed._grid_pad(S * nb * (BLOCK // 2) + 1),
+                     np.int32)
+    widths = np.empty((S, nb), np.int32)
+    woffs = np.empty((S, nb), np.int32)
+    order = np.empty(S, np.int32)
+    total = native.pack_residual_raw(streams, words, widths, woffs, order)
+    assert total >= 0
+    words = words[:p_packed._grid_pad(total + 1)]
+    words[total:] = 0
+    return p_packed.PackedChunk(words=words, widths=widths, woffs=woffs,
+                                order=order, n=n, shape=shape)
+
+
+def _wire_pack_cc_adaptive(x16, scratch, threshold=0.9):
+    """``pack_adaptive`` as it was over native/wire_pack.cc: the budget
+    and the scratch bound the words that pack writes, and it stops on
+    the first block past them."""
+    assert native.available(), "native/wire_pack.cc did not build"
+    shape = x16.shape
+    n = shape[-1]
+    streams = x16.reshape(-1, n)
+    S = streams.shape[0]
+    nb = -(-n // BLOCK)
+    budget = int(threshold * S * n * 16) // 32
+    cap = min(scratch.size, p_packed._grid_pad(budget + 1))
+    widths = np.empty((S, nb), np.int32)
+    woffs = np.empty((S, nb), np.int32)
+    order = np.empty(S, np.int32)
+    total = native.pack_residual_raw(streams, scratch[:cap], widths, woffs,
+                                     order)
+    if total < 0 or total > budget:
+        return None
+    wpad = p_packed._grid_pad(total + 1)
+    if wpad > scratch.size:
+        return None
+    words = scratch[:wpad]
+    words[total:] = 0
+    return p_packed.PackedChunk(words=words, widths=widths, woffs=woffs,
+                                order=order, n=n, shape=shape)
 
 
 def _as_f32(x16):
@@ -133,14 +213,108 @@ def test_packers_equal_the_jax_package_word_for_word(name):
         _assert_same_chunk(pack_residual(x), want)  # None: native if built
 
 
-def test_native_is_required_when_asked_for(monkeypatch):
-    monkeypatch.setattr(p_packed, "_pack_residual_native",
-                        lambda *a: None)
+def _break_the_build(monkeypatch, tmp_path):
+    bad = tmp_path / "wire_pack.cc"
+    bad.write_text("int prt_wire_widths( { return 0; }\n")
+    monkeypatch.setattr(_wirepack, "SOURCE", bad)
+    monkeypatch.setattr(_wirepack, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_wirepack, "_lib", None)
+
+
+def test_native_is_required_when_asked_for(monkeypatch, tmp_path):
+    """A host packer that fails to build raises with the compiler's
+    output, whether the pack asked for it (True) or took the default
+    (None); only ``native=False`` packs, with numpy."""
+    _break_the_build(monkeypatch, tmp_path)
     x = _case("random")
-    with pytest.raises(RuntimeError, match="native"):
-        pack_residual(x, native=True)
-    # None falls back to the numpy path
-    np.testing.assert_array_equal(_unpack_port(pack_residual(x)), _as_f32(x))
+    for native_ in (True, None):
+        with pytest.raises(RuntimeError,
+                           match=r"(?s)exit code.*wire_pack\.cc.*error"):
+            pack_residual(x, native=native_)
+    np.testing.assert_array_equal(
+        _unpack_port(pack_residual(x, native=False)), _as_f32(x))
+
+
+def test_a_failed_build_ships_nothing(monkeypatch, tmp_path):
+    """``pack_adaptive`` raises too (no quiet pcm16), and no library, whole
+    or half, is left behind."""
+    _break_the_build(monkeypatch, tmp_path)
+    x = _case("slow_sine")
+    with pytest.raises(RuntimeError, match=r"(?s)exit code.*error"):
+        pack_adaptive(x, np.empty(x.size, np.int32))
+    assert list((tmp_path / "build").iterdir()) == []
+
+
+def test_the_build_is_named_by_source_and_flags(monkeypatch):
+    """The library's name carries a hash of the source and the flags; a
+    built one is reused as it is."""
+    so = _wirepack.build()
+    assert so.parent == _wirepack.BUILD_DIR and so.name.startswith(
+        "libprt_wire_")
+    mtime = so.stat().st_mtime_ns
+    assert _wirepack.build() == so and so.stat().st_mtime_ns == mtime
+    monkeypatch.setattr(_wirepack, "CXX_FLAGS", (*_wirepack.CXX_FLAGS, "-g"))
+    assert _wirepack.library_path() != so
+    assert not [p for p in so.parent.iterdir() if p.suffix == ".tmp"]
+
+
+@pytest.mark.parametrize("workers", [1, 2, 3, "more"])
+@pytest.mark.parametrize("name", HOST_CASES)
+def test_host_packer_equals_every_oracle(monkeypatch, name, workers):
+    """Words up to the total, the zeroed slack and grid padding, widths,
+    offsets and orders: native/wire_pack.cc's, the numpy path's and the
+    JAX package's, on any number of workers."""
+    x = _case(name)
+    _force_workers(monkeypatch, workers)
+    got = pack_residual(x)
+    _assert_same_chunk(got, _wire_pack_cc(x))
+    _assert_same_chunk(got, pack_residual(x, native=False))
+    _assert_same_chunk(got, j_packed.pack_residual(x, native=False))
+    np.testing.assert_array_equal(_unpack_port(got), _as_f32(x))
+
+
+def test_host_packer_under_more_workers_than_cores(monkeypatch):
+    """Four workers a CPU over 320 blocks, five times: the shared run
+    counter hands every block to one worker only, each time."""
+    import os
+
+    workers = 4 * len(os.sched_getaffinity(0))
+    _force_workers(monkeypatch, workers)
+    x = np.random.default_rng(9).integers(-32768, 32768, (64, 5 * BLOCK - 3),
+                                          np.int16)
+    x[::2] //= 256  # other widths and orders in every other stream
+    want = _wire_pack_cc(x)
+    for _ in range(5):
+        _assert_same_chunk(pack_residual(x), want)
+
+
+def test_host_packer_checks_its_buffers():
+    """Every array must be C-contiguous, of its dtype and shape, and the
+    words must hold the total."""
+    x = np.ascontiguousarray(_case("random").reshape(-1, 10_000))
+    widths, woffs, order, total, _ = p_packed._host_layout(x)
+    for words in (np.empty(total - 1, np.int32), np.empty(total, np.int64),
+                  np.empty(2 * total, np.int32)[::2]):
+        with pytest.raises(ValueError):
+            _wirepack.fill(x, widths, woffs, order, words, total, 1)
+    for bad in (x.astype(np.int32), x[:, ::2]):
+        with pytest.raises(ValueError):
+            _wirepack.layout(bad, widths, woffs, order, 1)
+    with pytest.raises(ValueError):
+        _wirepack.layout(x, widths[:, :1], woffs, order, 1)
+
+
+@pytest.mark.parametrize("k", [0, 1, 2, 3])
+def test_host_cases_are_what_they_say(k):
+    """Each order case picks its order; full-scale noise packs at 16 bits,
+    silence at 1; the batch picks all four."""
+    pk = pack_residual(_case(f"order{k}"))
+    assert pk.order.tolist() == [k]
+    if k == 0:
+        assert set(pk.widths.ravel().tolist()) == {16}
+    assert set(pack_residual(_case("silence")).widths.ravel().tolist()) == {1}
+    assert set(pack_residual(_case("batch_of_orders")).order.tolist()) == {
+        0, 1, 2, 3}
 
 
 @pytest.mark.parametrize("group", [BLOCK, 3 * BLOCK, 1 << 25])
@@ -216,8 +390,6 @@ def _tone16(shape_lead, n, noise, seed=3):
 def test_pack_adaptive_equals_the_jax_package():
     """Compressible content packs (the same chunk as JAX's, unpacking to
     the input); noise exceeds the budget and ships as pcm16 (None)."""
-    if not native.available():
-        pytest.skip("native host library unavailable")
     x = _tone16((2, 2), 8 * BLOCK + 5, 0.001)
     scratch = np.empty(max(1 << 16, x.size * 16 // 32), np.int32)
     pk = pack_adaptive(x, scratch)
@@ -261,3 +433,65 @@ def test_packed_sweep_needs_a_device():
     pk = pack_residual(_case("len4097"))
     with pytest.raises(RuntimeError, match="CUDA"):
         sweep_peaks_aux_packed(pk, OfflineGeometry(1024))
+
+
+def _adaptive_input(name):
+    return _tone16((2, 2), 8 * BLOCK + 5, 0.001) if name == "tone" \
+        else _case(name)
+
+
+@pytest.mark.parametrize("room", ["ample", "exact", "short"])
+@pytest.mark.parametrize("budget", ["default", "at_total", "below_total"])
+@pytest.mark.parametrize("name", ["tone", "random", "batch_of_orders",
+                                  "silence"])
+def test_pack_adaptive_ships_pcm16_where_wire_pack_cc_did(name, budget,
+                                                          room):
+    """None on exactly the inputs where the pack over native/wire_pack.cc
+    gave None, the same chunk elsewhere, at the default threshold and at
+    budgets of the packed total and one word less, with scratch to spare,
+    exactly the padded words, and one word short; the scratch holds
+    another pack's words beforehand."""
+    x = _adaptive_input(name)
+    S, n = int(np.prod(x.shape[:-1])), x.shape[-1]
+    total = int(pack_residual(x).widths.sum()) * (BLOCK // 32)
+    wpad = p_packed._grid_pad(total + 1)
+    threshold = {"default": 0.9, "at_total": (32 * total + 16) / (16 * S * n),
+                 "below_total": (32 * total - 16) / (16 * S * n)}[budget]
+    size = {"ample": 2 * wpad + x.size, "exact": wpad, "short": wpad - 1}[room]
+    stale = pack_residual(_case("random")).words
+    scratches = []
+    for _ in range(3):
+        scratch = np.full(size, -7, np.int32)
+        scratch[: min(size, stale.size)] = stale[:size]
+        scratches.append(scratch)
+    got = pack_adaptive(x, scratches[0], threshold)
+    want = _wire_pack_cc_adaptive(x, scratches[1], threshold)
+    assert (got is None) == (want is None)
+    j_got = j_packed.pack_adaptive(x, scratches[2], threshold)
+    assert (j_got is None) == (want is None)
+    if budget == "below_total" or room == "short":
+        assert got is None
+    if budget == "at_total" and room != "short":
+        assert got is not None
+    if got is not None:
+        assert got.words.base is scratches[0]
+        _assert_same_chunk(got, want)
+        _assert_same_chunk(got, j_got)
+        np.testing.assert_array_equal(_unpack_port(got), _as_f32(x))
+
+
+@pytest.mark.parametrize("workers", [1, 3, "more"])
+def test_pack_adaptive_into_a_reused_scratch(monkeypatch, workers):
+    """One scratch through a run of packs, as a staging ring would reuse
+    it: each chunk equals a fresh pack over native/wire_pack.cc."""
+    _force_workers(monkeypatch, workers)
+    scratch = np.empty(1 << 16, np.int32)
+    for name in ("tone", "batch_of_orders", "random", "silence", "len31",
+                 "one_stream"):
+        x = _adaptive_input(name)
+        got = pack_adaptive(x, scratch)
+        want = _wire_pack_cc_adaptive(x, np.empty_like(scratch))
+        assert (got is None) == (want is None), name
+        if got is not None:
+            assert got.words.base is scratch
+            _assert_same_chunk(got, want)

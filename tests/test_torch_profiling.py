@@ -7,8 +7,9 @@ it records name, thread, wall-clock ends and attributes into one bounded
 buffer that ``drain()`` empties.  A CPU ``fleet.analyze_paths`` under each
 transport records one ``fleet.decode`` per file, one ``fleet.stage``,
 ``fleet.pack``, ``fleet.stage_wait``, ``fleet.dispatch`` and
-``fleet.readback`` per batch, ``packed.unpack`` per packed batch, and
-counters whose bytes equal what was shipped.
+``fleet.readback`` per batch, ``packed.unpack`` per packed batch,
+counters whose bytes equal what was shipped, and ``packed.pack_workers``
+once per host pack.
 """
 
 import json
@@ -222,10 +223,6 @@ def _catalogue(tmp_path):
 
 @pytest.mark.parametrize("transport", ["auto", "packed", "pcm16"])
 def test_fleet_records_its_batches(tmp_path, monkeypatch, transport):
-    from phaserotate_tpu_torch.io import native
-
-    if transport == "auto" and not native.available():
-        pytest.skip("native host library unavailable: auto never packs")
     shipped = []
     for mod, name, kind in ((packed, "sweep_peaks_aux_packed", "packed"),
                             (sweep, "sweep_peaks_aux_pcm16", "pcm16")):
@@ -275,6 +272,9 @@ def test_fleet_records_its_batches(tmp_path, monkeypatch, transport):
 
     assert values("fleet.wire_bytes") == [b for _, b, _ in shipped]
     assert values("fleet.pcm16_bytes") == [n for _, _, n in shipped]
+    # every pack, shipped or not, counts its workers once
+    assert len(values("packed.pack_workers")) == (
+        0 if transport == "pcm16" else batches)
 
 
 def test_fleet_profile_variable_traces_the_spans(tmp_path, monkeypatch,
@@ -298,7 +298,42 @@ def test_fleet_profile_variable_traces_the_spans(tmp_path, monkeypatch,
     assert [r.attrs["transport"] for r in got
             if r.name == "fleet.pack"] == ["packed"]
     assert [r.name for r in got if isinstance(r, CountRecord)] == [
-        "fleet.wire_bytes", "fleet.pcm16_bytes"]
+        "packed.pack_workers", "fleet.wire_bytes", "fleet.pcm16_bytes"]
+
+
+@pytest.mark.parametrize("workers", [None, 1, 3, "more"])
+def test_a_pack_counts_its_workers_once(monkeypatch, workers):
+    """Under ``recording()`` each host pack counts ``packed.pack_workers``
+    once, with the workers it ran on (between 1 and its blocks; a forced
+    count above the blocks is cut to them): ``pack_residual``, and
+    ``pack_adaptive`` whether it packs or ships pcm16.  The numpy pack
+    counts nothing; off, nothing is recorded."""
+    from phaserotate_tpu_torch.search import _wirepack
+
+    if workers is not None:
+        monkeypatch.setattr(
+            _wirepack, "workers_for",
+            lambda blocks: blocks + 5 if workers == "more" else workers)
+    rng = np.random.default_rng(3)
+    noise = rng.integers(-32768, 32768, (2, 5 * packed.BLOCK + 7), np.int16)
+    tone = np.rint(20000 * np.sin(np.arange(noise.shape[1]) / 300.0)
+                   ).astype(np.int16)[None].repeat(2, 0)
+    blocks = 2 * 6
+    scratch = np.empty(noise.size, np.int32)
+    with recording():
+        packed.pack_residual(noise)
+        assert packed.pack_adaptive(noise, scratch) is None
+        assert packed.pack_adaptive(tone, scratch) is not None
+        packed.pack_residual(noise, native=False)
+    got = drain()
+    assert [r.name for r in got] == ["packed.pack_workers"] * 3
+    want = {None: _wirepack.workers_for(blocks), 1: 1, 3: 3,
+            "more": blocks}[workers]
+    assert 1 <= want <= blocks
+    assert [r.n for r in got] == [want] * 3
+    packed.pack_residual(noise)
+    packed.pack_adaptive(tone, scratch)
+    assert drain() == []
 
 
 def test_device_trace_records_without_a_session_flag(tmp_path, monkeypatch):
