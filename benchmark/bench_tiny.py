@@ -17,12 +17,15 @@ from harness.spec import HELD, Cell, load_spec  # noqa: E402
 SEED = 2 ** 31 + 12345
 
 
-def tiny(name: str, sessions: int = 2) -> Cell:
+def tiny(name: str, sessions: int = 2, config: dict = None) -> Cell:
+    """The cell ``name`` cut down; ``config`` replaces keys of its
+    configuration (such as ``bits``)."""
     spec = load_spec()
     if name not in {w["name"] for w in spec["workloads"]}:
         spec = load_spec(path=HELD)
     cell = Cell(spec, name)
     cell.config = copy.deepcopy(cell.config)
+    cell.config.update(config or {})
     cell.traffic = dict(cell.traffic)
     if "masters" in cell.config:
         cell.config["masters"]["song_seconds"] = {"mean": 3.5, "sigma": 0.4}
@@ -38,13 +41,13 @@ def tiny(name: str, sessions: int = 2) -> Cell:
 
 
 def run_tiny(name: str, seconds: float = 2.0, traced: bool = False,
-             seed: int = SEED, **kw):
+             seed: int = SEED, config: dict = None, **kw):
     """(Outcome, result line, checks) of one CPU run of a tiny cell."""
     import torch
 
     import run as bench_run
 
-    cell = tiny(name)
+    cell = tiny(name, config=config)
     out = bench_run.run_cell(cell, seed, seconds, traced,
                              torch.device("cpu"), SetupClock(), **kw)
     res, checked = bench_run.result_line(cell, out, traced, "cpu", 1)

@@ -8,6 +8,10 @@ out the reference, and reads the judge's numbers for:
 
 * ``control``: the reference computed in bfloat16 (the precision below
   the configurations' float32);
+* ``shallow_read``, for a configuration deeper than 16 bits: the
+  reference on the 16-bit-rounded copy of the same masters, as a program
+  that reads them one grid coarser would see them (``input_peak_gap``
+  must fail it where ``table_gap`` and ``angle_regret`` pass it);
 * each fault of ``harness/faults.py`` the cell can have, planted in the
   reference's answers: half of a batch's files answered with nothing,
   every angle moved by 45 degrees; for the served stream, half of the
@@ -32,7 +36,8 @@ sys.path[:0] = [HERE, os.path.dirname(HERE)]
 
 from harness import judge  # noqa: E402
 from harness.analysis import _bucket_samples  # noqa: E402
-from harness.signals import music_device, music_host, song_seconds  # noqa
+from harness.signals import (music_device, music_host,  # noqa: E402
+                             sample_bits, song_seconds)
 from harness.spec import HELD, Cell, load_spec  # noqa: E402
 from reference import offline, stream  # noqa: E402
 from reference.dsp import cli_blksiz, hilbert_fir, plugin_geometry  # noqa
@@ -44,23 +49,32 @@ def analysis_readings(cell, seed, device):
     cfg, tr = cell.config, cell.traffic
     rate, ch = cfg["rate"], cfg["channels"]
     blksiz = cli_blksiz(rate, cfg["blksiz"])
+    bits = sample_bits(cfg)
     count = tr.get("files", tr.get("songs"))
     secs = song_seconds(count, **cfg["masters"]["song_seconds"])
-    ref, ctl = {}, {}
+    ref, ctl, shallow = {}, {}, {}
+
+    def answers(table, rot0):
+        return dict(table=table, rot0=rot0, **offline.select_angles(
+            table[None], rot0[None], cfg["stride"], cfg["link"])[0])
+
     for i, s in enumerate(secs):
         x = music_device(seed, i, ch, int(s * rate), rate,
-                         cfg["masters"]["peak_dbfs"], device)[0]
-        t, r0 = offline.peak_table(x.to(torch.float64), blksiz)
-        tb, rb0 = offline.peak_table(x, blksiz, precision="bfloat16")
-        ref[i] = dict(table=t, rot0=r0, **offline.select_angles(
-            t[None], r0[None], cfg["stride"], cfg["link"])[0])
-        ctl[i] = dict(table=tb, rot0=rb0, **offline.select_angles(
-            tb[None], rb0[None], cfg["stride"], cfg["link"])[0])
+                         cfg["masters"]["peak_dbfs"], device, bits)[0]
+        ref[i] = answers(*offline.peak_table(x.to(torch.float64), blksiz))
+        ctl[i] = answers(*offline.peak_table(x, blksiz,
+                                             precision="bfloat16"))
+        if bits > 16:
+            x16 = torch.clamp(torch.round(x.to(torch.float64) * 32768.0),
+                              -32768, 32767) / 32768.0
+            shallow[i] = answers(*offline.peak_table(x16, blksiz))
 
     def rows(src):
         return [dict(key=i, **src[i]) for i in src]
 
     out = {"control": judge.analysis_numbers(rows(ctl), ref)}
+    if shallow:
+        out["shallow_read"] = judge.analysis_numbers(rows(shallow), ref)
     # half of each batch answered with nothing (zeros), in fleet's groups
     groups = {}
     for i, s in enumerate(secs):

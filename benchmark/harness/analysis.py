@@ -7,7 +7,8 @@ starts none after ``seconds``; ``analyze_xrt`` (the catalogue) and
 ``search_xrt`` (the resident songs) are the unpadded audio seconds of the
 window's calls over their wall time.  Every answer of the
 window is then held against the reference (``reference/offline.py``) on
-the same samples the benchmark made."""
+the same samples the benchmark made, at the depth the configuration
+states (``bits``)."""
 
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from reference.offline import peak_table, select_angles
 
 from . import roofline
 from .outcome import Outcome
-from .signals import music_device, song_seconds, write_wav16
+from .signals import music_device, sample_bits, song_seconds, write_wav
 from .trace import DeviceTrace, Patches, Trace, span_wrapper
 
 _SWEEP_FPS = roofline.sweep_flops_per_sample(cos_sin_table())
@@ -112,10 +113,12 @@ def _reference(keys_x, blksiz, stride, link) -> Dict[object, dict]:
 def catalogue(cell, seed: int, seconds: float, traced: bool, device,
               clock, tmpdir: str, gate=None) -> Outcome:
     """``fleet.analyze_paths`` over consecutive slices of a catalogue of
-    16-bit WAVs: distinct songs, each under several hard-linked names."""
+    PCM WAVs at the configuration's depth: distinct songs, each under
+    several hard-linked names."""
     import torch
 
     cfg, tr = cell.config, cell.traffic
+    bits = sample_bits(cfg)
     device = _prepare_program(clock, device, gate)
     from phaserotate_tpu_torch import fleet
 
@@ -131,12 +134,12 @@ def catalogue(cell, seed: int, seconds: float, traced: bool, device,
     base = os.path.join(tmpdir, "catalogue")
     os.makedirs(base)
     for i, ni in enumerate(n):
-        x, i16 = music_device(seed, i, ch, ni, rate, masters["peak_dbfs"],
-                              device)
-        pcm[i] = i16.cpu().numpy()
-        del x, i16
+        x, q = music_device(seed, i, ch, ni, rate, masters["peak_dbfs"],
+                            device, bits)
+        pcm[i] = q.cpu().numpy()
+        del x, q
         first = os.path.join(base, f"s{i:02d}_0.wav")
-        write_wav16(first, pcm[i], rate)
+        write_wav(first, pcm[i], rate, bits)
         for k in range(1, tr["links"]):
             os.link(first, os.path.join(base, f"s{i:02d}_{k}.wav"))
     groups: Dict[int, List[int]] = {}
@@ -179,12 +182,16 @@ def catalogue(cell, seed: int, seconds: float, traced: bool, device,
     patches.set(fleet, "select_min_peak_angles_batch", capture)
     try:
         # warm-up: a batch of each bucket's shape, the first through the
-        # window's transport (the packer and the unpack on the card), the
-        # others as pcm16, which skips the host packer's seconds
+        # window's transport (the packer and the unpack on the card); at 16
+        # bits the others as pcm16, which skips the host packer's seconds.
+        # Deeper masters warm every bucket through the window's transport:
+        # pcm16 is not the path measured, and a sound read of them may
+        # refuse it
         for b, key in enumerate(sorted(groups)):
             first = [q for q in slices[0] if _bucket_samples(
                 n[q[0]], blksiz) == key][:batch]
-            call(first, tr["transport"] if b == 0 else "pcm16")
+            call(first, tr["transport"] if b == 0 or bits != 16
+                 else "pcm16")
         rows.clear()
         order.clear()
         clock.mark("warmup")
@@ -232,8 +239,9 @@ def catalogue(cell, seed: int, seconds: float, traced: bool, device,
     for r, p in zip(rows, order):
         r["key"] = key_of[p]
     t_ref = time.monotonic()
+    full = float(1 << (bits - 1))
     ref = _reference(
-        ((i, torch.from_numpy(pcm[i]).to(device).to(torch.float64) / 32768.0)
+        ((i, torch.from_numpy(pcm[i]).to(device).to(torch.float64) / full)
          for i in sorted(pcm)), blksiz, cfg["stride"], cfg["link"])
     from .judge import analysis_numbers
 
@@ -250,10 +258,12 @@ def catalogue(cell, seed: int, seconds: float, traced: bool, device,
 def resident(cell, seed: int, seconds: float, traced: bool, device,
              clock, tmpdir: str, gate=None) -> Outcome:
     """``sweep_peaks_aux`` and the selection over batches of songs that
-    stay on the card, zero-padded to their bucket as the fleet pads."""
+    stay on the card, zero-padded to their bucket as the fleet pads, on
+    the configuration's grid."""
     import torch
 
     cfg, tr = cell.config, cell.traffic
+    bits = sample_bits(cfg)
     device = _prepare_program(clock, device, gate)
     from phaserotate_tpu_torch.core.sizes import offline_geometry
     from phaserotate_tpu_torch.search.minimize import (
@@ -279,7 +289,8 @@ def resident(cell, seed: int, seconds: float, traced: bool, device,
                             device=device)
             for r, i in enumerate(part):
                 x[r, :, : n[i]] = music_device(
-                    seed, i, ch, n[i], rate, masters["peak_dbfs"], device)[0]
+                    seed, i, ch, n[i], rate, masters["peak_dbfs"], device,
+                    bits)[0]
             batches.append((part, x))
     clock.mark("songs_on_card")
 

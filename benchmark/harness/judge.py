@@ -6,6 +6,16 @@ Analysis cells (the catalogue and the resident search):
   "rotated by 0" aux value) of the program and of the reference, over
   every file, channel and angle the window analysed, as a share of the
   reference's largest entry for that channel;
+* ``input_peak_gap``: the widest gap between the program's angle-0 table
+  entry and the reference's, as a share of the reference's, over every
+  file and channel.  That entry is the raw input peak (the CLI's
+  ``cli/phase-rotate.cc:413-414``), an abs-max of samples that float32
+  holds exactly at 16 and at 24 bits (each an integer over a power of
+  two), so a program that reads the samples at the configuration's depth
+  reads exactly 0.  The limit is 0, as for any exact comparison: one
+  float32 step of the entry is 2^-24 of it or more, and a read one grid
+  coarser (24-bit masters read as 16-bit) misses by up to 2^-16 of full
+  scale, well inside ``table_gap``'s limit;
 * ``angle_regret``: for every file and channel, how much higher the
   reference's peak is at the program's chosen angle than at its own
   choice, as a share of the latter; 1 where the two choose the same angle
@@ -32,6 +42,7 @@ from reference.dsp import MAXSAMPLE
 
 LIMITS = {
     "table_gap": 1e-4,
+    "input_peak_gap": 0.0,
     "angle_regret": 1e-4,
     "audio_gap": 1e-4,
     "level_gap": 1e-4,
@@ -59,6 +70,7 @@ def analysis_numbers(rows: List[dict], ref: Dict[object, dict]
     """``rows``: the program's answers, each {key, table (C, A), rot0 (C,),
     units [C], found [C]}; ``ref``: the reference's per key."""
     gap = 0.0
+    peak_gap = 0.0
     regret = 0.0
     for r in rows:
         R = ref[r["key"]]
@@ -69,6 +81,8 @@ def analysis_numbers(rows: List[dict], ref: Dict[object, dict]
             d = float(np.max(np.abs(np.append(
                 tp[c] - tr[c], float(r["rot0"][c]) - float(R["rot0"][c])))))
             gap = _worst(gap, d / scale)
+            peak_gap = _worst(peak_gap, abs(float(tp[c, 0]) - float(
+                tr[c, 0])) / max(float(tr[c, 0]), 1e-30))
             up, ur = int(r["units"][c]), int(R["units"][c])
             if bool(r["found"][c]) != bool(R["found"][c]):
                 regret = max(regret, 1.0)
@@ -78,7 +92,8 @@ def analysis_numbers(rows: List[dict], ref: Dict[object, dict]
                 base = max(float(tr[c, ur % MAXSAMPLE]), 1e-30)
                 regret = _worst(regret, abs(
                     float(tr[c, up % MAXSAMPLE]) - base) / base)
-    return {"table_gap": gap, "angle_regret": regret}
+    return {"table_gap": gap, "input_peak_gap": peak_gap,
+            "angle_regret": regret}
 
 
 def serving_numbers(sessions: List[dict]) -> Dict[str, float]:

@@ -1,6 +1,7 @@
 """Audio made from the seed: music-like stereo on the card (the analysis
 cells) or on the host (each serving client), the song lengths of a
-configuration, and a 16-bit WAV writer of the benchmark's own.
+configuration, the sample format a configuration states, and a PCM WAV
+writer of the benchmark's own.
 
 The signal is an asymmetric three-partial tone under a slow envelope plus
 band-limited noise, so the peak-versus-angle table is far from flat.  An
@@ -15,6 +16,28 @@ from typing import List
 
 import numpy as np
 
+from .spec import SpecError
+
+# the sample depths each container is written at (a configuration's
+# ``container`` and ``bits``)
+FORMATS = {"wav": (16, 24)}
+
+
+def sample_bits(config: dict) -> int:
+    """The bits a sample of the configuration's masters: its ``bits`` (16
+    where it states none) in its ``container`` (``"wav"`` where it states
+    none).  A format the benchmark cannot write raises ``SpecError``."""
+    name = config.get("name", "?")
+    container = config.get("container", "wav")
+    if container not in FORMATS:
+        raise SpecError(f"config {name!r}: container {container!r} is not "
+                        f"one the benchmark writes ({sorted(FORMATS)})")
+    bits = config.get("bits", 16)
+    if bits not in FORMATS[container]:
+        raise SpecError(f"config {name!r}: bits {bits!r} is not a depth "
+                        f"the benchmark writes {container} at "
+                        f"{FORMATS[container]}")
+    return bits
 
 
 def song_seconds(count: int, mean: float, sigma: float) -> List[float]:
@@ -32,10 +55,12 @@ def _seed(seed: int, *salt: int) -> np.random.Generator:
 
 
 def music_device(seed: int, index: int, channels: int, n: int, rate: int,
-                 peak_dbfs, device):
-    """(channels, n) float32 on ``device``, quantized to the 16-bit grid;
-    also the int16 samples.  The master peaks at a level drawn from the
-    seed inside ``peak_dbfs`` (lowest, highest), in dBFS."""
+                 peak_dbfs, device, bits: int = 16):
+    """(channels, n) float32 on ``device``, quantized to the ``bits`` grid
+    (steps of 2^-(bits-1)); also the integer samples: int16 at 16 bits,
+    int32 at 24.  The master peaks at a level drawn from the seed inside
+    ``peak_dbfs`` (lowest, highest), in dBFS.  The music does not depend
+    on ``bits``, only its rounding."""
     import torch
 
     rng = _seed(seed, 1, index)
@@ -59,8 +84,10 @@ def music_device(seed: int, index: int, channels: int, n: int, rate: int,
         x += (0.08 * h) * noise[:, k : k + n]
     del noise
     x *= peak / x.abs().max()
-    i16 = torch.clamp(torch.round(x * 32768.0), -32768, 32767).to(torch.int16)
-    return i16.to(torch.float32) * (1.0 / 32768.0), i16
+    full = 1 << (bits - 1)
+    q = torch.clamp(torch.round(x * float(full)), -full, full - 1).to(
+        torch.int16 if bits == 16 else torch.int32)
+    return q.to(torch.float32) * (1.0 / full), q
 
 
 def music_host(seed: int, index: int, channels: int, n: int,
@@ -81,13 +108,25 @@ def music_host(seed: int, index: int, channels: int, n: int,
     return out
 
 
-def write_wav16(path: str, pcm: np.ndarray, rate: int) -> None:
-    """A canonical 44-byte-header PCM WAV of (channels, n) int16."""
-    ch, n = pcm.shape
-    data = np.ascontiguousarray(pcm.T, "<i2")
+# the low three bytes of a little-endian int32
+_LOW3 = np.dtype({"names": ["s"], "formats": ["V3"], "offsets": [0],
+                  "itemsize": 4})
+
+
+def write_wav(path: str, pcm: np.ndarray, rate: int, bits: int = 16) -> None:
+    """A canonical 44-byte-header PCM WAV (format tag 1) of (channels, n)
+    integer samples at ``bits`` 16 (int16) or 24 (the low three bytes of
+    each int32, little-endian, packed)."""
+    ch = pcm.shape[0]
+    width = bits // 8
+    if bits == 16:
+        data = np.ascontiguousarray(pcm.T, "<i2")
+    else:  # one 3-byte item a sample, copied whole (bytewise is 2x slower)
+        data = np.ascontiguousarray(np.ascontiguousarray(pcm.T, "<i4").view(
+            _LOW3)["s"])
     with open(path, "wb") as f:
         f.write(b"RIFF" + struct.pack("<I", 36 + data.nbytes) + b"WAVE")
         f.write(b"fmt " + struct.pack("<IHHIIHH", 16, 1, ch, rate,
-                                      rate * ch * 2, ch * 2, 16))
+                                      rate * ch * width, ch * width, bits))
         f.write(b"data" + struct.pack("<I", data.nbytes))
         f.write(data.tobytes())

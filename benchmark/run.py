@@ -124,9 +124,12 @@ def main(argv=None) -> int:
         require_cuda(cell.chips)
         clock.mark("import_torch")
 
-    out = run_cell(cell, args.seed, args.seconds, bool(args.trace),
-                   types.SimpleNamespace(type="cuda", index=0), clock,
-                   gate=gate)
+    try:
+        out = run_cell(cell, args.seed, args.seconds, bool(args.trace),
+                       types.SimpleNamespace(type="cuda", index=0), clock,
+                       gate=gate)
+    except SpecError as e:
+        fail(str(e))
     import torch
 
     name = out.info.pop("device_name", None) or torch.cuda.get_device_name(0)

@@ -147,3 +147,35 @@ def test_serving_control_in_bfloat16_fails(seed):
     numbers = judge.serving_numbers([dict(out=yb, ref=y, levels=lvb,
                                           ref_levels=lv)])
     assert not judge.passed(judge.checks(numbers))
+
+
+@pytest.mark.parametrize("bits", [16, 24])
+def test_input_peak_gap_reads_the_port_exactly(bits):
+    """The port's CPU sweep over songs on the 16- or the 24-bit grid, run
+    by the resident driver: its angle-0 entries equal the reference's."""
+    from bench_tiny import run_tiny
+
+    out, res, checked = run_tiny("search.cli_48k.resident",
+                                 config={"bits": bits})
+    assert res["correct"], checked
+    assert checked["input_peak_gap"] == {"value": 0.0, "limit": 0.0}
+
+
+@pytest.mark.parametrize("seed", [6, 2 ** 31 + 77])
+def test_shallow_read_of_24_bit_masters_fails_only_input_peak_gap(seed):
+    """The reference on the 16-bit-rounded copy of 24-bit masters, in the
+    program's place (``calibrate.py``'s ``shallow_read``), is inside the
+    limits of the table and the angles and outside ``input_peak_gap``'s."""
+    import calibrate
+    from bench_tiny import tiny
+
+    cell = tiny("analyze.cli_48k.catalogue",
+                config={"bits": 24, "rate": 96000})
+    got = calibrate.analysis_readings(cell, seed, torch.device("cpu"))
+    shallow = got["shallow_read"]
+    assert 2.0 ** -24 < shallow["input_peak_gap"] < judge.LIMITS["table_gap"]
+    assert shallow["table_gap"] < judge.LIMITS["table_gap"]
+    assert shallow["angle_regret"] < judge.LIMITS["angle_regret"]
+    assert not judge.passed(judge.checks(shallow))
+    assert "shallow_read" not in calibrate.analysis_readings(
+        tiny("analyze.cli_48k.catalogue"), seed, torch.device("cpu"))

@@ -112,3 +112,41 @@ def test_traffic_files_are_data():
     for path in (BENCH / "traffic").iterdir():
         assert path.suffix == ".json", path
         assert json.loads(path.read_text())["kind"] in KINDS
+
+
+@pytest.mark.parametrize("driver,cell", [
+    ("catalogue", "analyze.cli_48k.catalogue"),
+    ("resident", "search.cli_48k.resident")])
+@pytest.mark.parametrize("key,value", [("bits", 20), ("bits", 32),
+                                       ("container", "flac")])
+def test_unwritable_format_is_refused_before_setup(driver, cell, key, value,
+                                                   tmp_path):
+    """A sample format the benchmark cannot write stops an analysis driver
+    before it starts the program or writes a file."""
+    import torch
+
+    from bench_tiny import tiny
+    from harness import analysis
+    from harness.common import SetupClock
+    from harness.spec import SpecError
+
+    started = []
+    with pytest.raises(SpecError,
+                       match=rf"'cli_48k'.*{key} {re.escape(repr(value))}"):
+        getattr(analysis, driver)(
+            tiny(cell, config={key: value}), 1, 1.0, False,
+            torch.device("cpu"), SetupClock(), str(tmp_path),
+            gate=lambda: started.append(1))
+    assert not started and not list(tmp_path.iterdir())
+
+
+def test_sample_format_defaults_and_listed_configs():
+    from harness.signals import sample_bits
+
+    assert sample_bits({"name": "x"}) == 16
+    assert sample_bits({"name": "x", "bits": 24, "container": "wav"}) == 24
+    for spec in SPECS.values():
+        for w in spec["workloads"]:
+            cell = Cell(spec, w["name"])
+            if cell.traffic["kind"] != "daemon_sessions":
+                assert sample_bits(cell.config) == cell.config.get("bits", 16)
