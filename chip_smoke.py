@@ -72,6 +72,10 @@ then, on the first CUDA device:
    mixes < 2e-5, fused_conv at every supported partition size); the two
    kernels no main path calls (``fused_rotate_fir``, ``peak``) have
    ``launches`` 0 and this check's own count under ``check_launches``;
+   ``pcm24_widen`` bit-equal on seeded random bytes, the 24-bit extremes
+   at both ends of each row, at the 96 kHz catalogue's longest bucket (8
+   x 2 x 2^26 frames; ``launches`` the catalogue run's, ``check_launches``
+   this check's);
    the sweep also with the slices of the table that a 3-way and a 4-way
    angle-sharded sweep passes (120 and 90 angles), a random 512-angle
    table and one angle, at both shapes (the kernel's general map,
@@ -714,7 +718,7 @@ def drive_catalogue(tmp, dev, card, times, x4, fleet, stems, stem_degs,
 
     from phaserotate_tpu_torch import fleet as pfleet
     from phaserotate_tpu_torch import rotate
-    from phaserotate_tpu_torch.io import read_audio
+    from phaserotate_tpu_torch.io import read_audio, write_wav
     from phaserotate_tpu_torch.kernels import _build
     from phaserotate_tpu_torch.parallel import (
         angle_sharded_sweep_peaks, batch_find_min_peak_angles, batch_rotate,
@@ -842,6 +846,63 @@ def drive_catalogue(tmp, dev, card, times, x4, fleet, stems, stem_degs,
               f"{copy}: other angles than its WAV twin")
     print(f"fleet: tables of pcm16, packed, auto and the CLI run "
           f"np.array_equal over {len(paths)} files; angles equal")
+    # 24-bit copies of eight 16-bit files, every sample given a random low
+    # byte: the exact read, the pcm24 wire and the widen kernel must hand
+    # the sweep the files' own samples, so the fleet's tables equal
+    # sweep_peaks_aux's on those float samples padded as the fleet pads
+    low = np.random.default_rng(SEED + 24)
+    deep, deep_x = [], []
+    for p in paths[:8]:
+        audio, rate, _ = read_audio(p)
+        q = np.rint(audio.astype(np.float64) * (1 << 23)) + low.integers(
+            -128, 128, audio.shape)
+        x24 = (np.clip(q, -(1 << 23), (1 << 23) - 1) / (1 << 23)).astype(
+            np.float32)
+        deep.append(os.path.join(tmp, "deep_" + os.path.basename(p)))
+        write_wav(deep[-1], x24, rate, bits=24, float_format=False)
+        check(np.array_equal(read_audio(deep[-1])[0], x24),
+              f"{deep[-1]}: the 24-bit file does not read back exactly")
+        deep_x.append(x24)
+    lows = np.concatenate([(np.rint(x * (1 << 23)).astype(np.int64) & 255)
+                           .ravel() for x in deep_x])
+    check(np.count_nonzero(lows) > 0.99 * lows.size,
+          "the 24-bit copies' low bytes are mostly zero")
+    deep_tables, deep_order = [], []
+    select = pfleet.select_min_peak_angles_batch
+
+    def capture(t, *a, **kw):
+        deep_tables.extend(np.array(row) for row in t)
+        return select(t, *a, **kw)
+
+    drain()
+    pfleet.select_min_peak_angles_batch = capture
+    try:
+        with recording(), phase("fleet_analyze_pcm24_8_files", card, times):
+            pfleet.analyze_paths(
+                deep, batch=batch,
+                progress=lambda p, r, cached: deep_order.append(p))
+    finally:
+        pfleet.select_min_peak_angles_batch = select
+    kinds = [r.attrs["transport"] for r in drain() if r.name == "fleet.pack"]
+    check(kinds == ["pcm24"], f"the 24-bit copies shipped {kinds}")
+    n_pad = pfleet._bucket_key(RATE, 2, max(x.shape[1] for x in deep_x),
+                               24, geom.parsiz)[2]
+    x_pad = np.zeros((len(deep), 2, n_pad), np.float32)
+    for i, x in enumerate(deep_x):
+        x_pad[i, :, : x.shape[1]] = x
+    want, _ = sweep_peaks_aux(torch.from_numpy(x_pad).to(dev), geom)
+    want = want.cpu().numpy()
+    got = dict(zip(deep_order, deep_tables))
+    for i, d in enumerate(deep):
+        check(np.array_equal(got[d], want[i]),
+              f"{d}: the 24-bit fleet's table differs from sweep_peaks_aux's "
+              "on the same samples")
+        check(np.array_equal(got[d][:, 0], np.abs(deep_x[i]).max(axis=-1)),
+              f"{d}: angle 0 is not the exact input peak")
+    print(f"fleet: 8 24-bit copies with random low bytes ({n_pad} frames "
+          "padded; pcm24 wire, pcm24_widen): tables np.array_equal to "
+          "sweep_peaks_aux on the same float samples, angle 0 the exact "
+          "input peak")
     with phase("fleet_per_file_search_6_files", card, times):
         for p in applied[:6]:
             audio, rate, _ = read_audio(p)
@@ -1512,7 +1573,8 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
     print(f"launches: {json.dumps(launches)}")
     check(rt_rot.device.type == "cuda", "PhaseRotator's default device")
     for name, count in launches.items():
-        if name not in ("fused_rotate_fir", "peak"):  # no production caller
+        # no production caller; the catalogue run drives pcm24_widen
+        if name not in ("fused_rotate_fir", "peak", "pcm24_widen"):
             check(count > 0,
                   f"kernel {name} was not launched by the main path")
     # the ramp: a target that changes every 50 plugin blocks
@@ -1554,7 +1616,7 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
                                    stem_degs, geom)
     print(f"launches of the catalogue run: {json.dumps(launches_cat)}")
     for name in ("hilbert_small", "rotate_peak_sweep", "rotate_small",
-                 "rotate_peak_sweep_general"):
+                 "rotate_peak_sweep_general", "pcm24_widen"):
         check(launches_cat[name] > 0,
               f"kernel {name} was not launched by the catalogue run")
     general_launches = launches_cat.pop("rotate_peak_sweep_general")
@@ -1966,6 +2028,46 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
         **bound(nbytes(flat_stems) + 4, 1.0 * flat_stems.numel()),
         library_ms=cuda_ms(lambda: torch.linalg.vector_norm(
             flat_stems, float("inf")), 2)))
+
+    # pcm24_widen at the 96 kHz catalogue's longest bucket (8 files x 2
+    # channels x 2^26 frames) on seeded random bytes, the 24-bit extremes
+    # at both ends of every row; no one PyTorch call computes it
+    from phaserotate_tpu_torch.kernels.pcm24 import (pcm24_widen,
+                                                     pcm24_widen_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    raw24 = torch.randint(0, 256, (8, 1 << 26, 2, 3), generator=gen,
+                          dtype=torch.uint8, device=dev)
+    ext = torch.tensor([[0x00, 0x00, 0x80], [0xFF, 0xFF, 0xFF],
+                        [0x00, 0x00, 0x00], [0xFF, 0xFF, 0x7F]],
+                       dtype=torch.uint8, device=dev)  # -2^23, -1, 0, 2^23-1
+    raw24[:, :2] = ext.reshape(2, 2, 3)
+    raw24[:, -2:] = ext.flip(0).reshape(2, 2, 3)
+    before = _build.launches["pcm24_widen"]
+    with phase("pcm24_widen_check", card, times):
+        widened = pcm24_widen(raw24)
+        check(torch.equal(widened, pcm24_widen_plain(raw24)),
+              "pcm24_widen not bit-equal to its plain twin")
+        edges = torch.tensor([-1.0, -2.0 ** -23, 0.0, 1.0 - 2.0 ** -23],
+                             device=dev)
+        check(torch.equal(widened[:, :, :2].transpose(1, 2).reshape(8, 4),
+                          edges.expand(8, 4))
+              and torch.equal(widened[:, :, -2:].transpose(1, 2)
+                              .reshape(8, 4), edges.flip(0).expand(8, 4)),
+              "pcm24_widen: the 24-bit extremes")
+    widen_checks = _build.launches["pcm24_widen"] - before
+    del widened
+    samples24 = raw24.numel() // 3
+    kernels.append(dict(
+        name="pcm24_widen", route="cuda",
+        source="phaserotate_tpu_torch/csrc/pcm24.cu", replaces=None,
+        launches=launches["pcm24_widen"], check_launches=widen_checks,
+        max_abs_err=0.0, shape=list(raw24.shape),
+        ms=cuda_ms(lambda: pcm24_widen(raw24), 20),
+        plain_ms=cuda_ms(lambda: pcm24_widen_plain(raw24), 2),
+        # 3 bytes read and 4 written a sample, one multiply
+        **bound(7 * samples24, samples24), library_ms=None))
+    del raw24
 
     for k in kernels:
         print(f"kernel {k['name']}: {k['ms']!r} ms, plain {k['plain_ms']!r} "

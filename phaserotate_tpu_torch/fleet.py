@@ -18,14 +18,20 @@ without one the command exits with an error unless the CPU is asked for
 Pipeline per batch: read -> decode straight to int16 PCM
 (io.read_audio_pcm16 — no host floats for 16-bit sources) -> ship
 as int16 or bit-packed to the device -> batched sweep (all 360
-angle-table entries at once) -> vectorized CLI-parity selection.  CUDA
+angle-table entries at once) -> vectorized CLI-parity selection.  A
+24-bit integer PCM WAV is read exactly instead (io/pcm24.py: its data
+payload straight into the batch buffer, 3 bytes a sample) and shipped as
+it is (the ``pcm24`` wire), widened on the device
+(search.sweep_peaks_aux_pcm24); the 16-bit transports would drop its low
+8 bits, so ``pcm16`` and ``packed`` refuse such a file.  Every other
+source (24-bit FLAC or AIFF among them) takes the int16 path.  CUDA
 launches are asynchronous, so the decode of batch k+1 overlaps the device
 pass of batch k; a batch's only synchronisation is the readback of its
 tables.
 
-Files bucket by (rate, channels, padded length); padding with silence
-is EXACT for the peak table: beyond the flush block the Hilbert FIR has
-fully rung out (its support is one partition), so zero blocks
+Files bucket by (rate, channels, padded length, depth read); padding with
+silence is EXACT for the peak table: beyond the flush block the Hilbert
+FIR has fully rung out (its support is one partition), so zero blocks
 contribute zero pairs — same tables as per-file runs (tested).
 
 Sweeps persist via --checkpoint (utils/checkpoint.SweepCheckpoint):
@@ -35,14 +41,16 @@ by either package resumes in the other.
 
 Tracing (utils/profiling): the staging thread (``fleet-stage``) records
 ``fleet.stage`` per batch, ``fleet.decode`` per file and ``fleet.pack``
-per batch (attribute ``transport``: packed or pcm16); the dispatch loop
-records ``fleet.stage_wait`` (waiting for the staging thread),
-``fleet.dispatch`` (transfer, unpack, sweep enqueue) and
+per batch (attribute ``transport``: packed, pcm16 or pcm24); the dispatch
+loop records ``fleet.stage_wait`` (waiting for the staging thread),
+``fleet.dispatch`` (transfer, unpack or widen, sweep enqueue) and
 ``fleet.readback``; each batch counts ``fleet.wire_bytes`` and
-``fleet.pcm16_bytes``.  They record only under a ``torch.profiler``
-session or a ``recording()`` scope; ``PHASEROTATE_TPU_PROFILE=<dir>``
-writes a profile of the whole command as a Chrome trace into ``<dir>``,
-the spans of both threads beside the kernels.
+``fleet.pcm16_bytes`` (a 24-bit batch only the former), and
+``search.sweep_peaks_aux_pcm24`` records ``pcm24.widen``.  They record
+only under a ``torch.profiler`` session or a ``recording()`` scope;
+``PHASEROTATE_TPU_PROFILE=<dir>`` writes a profile of the whole command
+as a Chrome trace into ``<dir>``, the spans of both threads beside the
+kernels.
 """
 
 from __future__ import annotations
@@ -64,24 +72,32 @@ from .utils.profiling import count, device_trace, span
 __all__ = ["analyze_paths", "apply_paths", "main"]
 
 
-def _bucket_key(rate: int, channels: int, n: int, parsiz: int):
+def _bucket_key(rate: int, channels: int, n: int, bits: int, parsiz: int):
     """Pad the block count to the next power of two: a homogeneous
-    fleet runs at ONE device shape per (rate, channels) group."""
+    fleet runs at ONE device shape per (rate, channels, depth) group."""
     blocks = max(1, -(-n // parsiz))
     padded = 1 << (blocks - 1).bit_length()
-    return rate, channels, padded * parsiz
+    return rate, channels, padded * parsiz, bits
 
 
-def _probe(path: str) -> Tuple[int, int, int]:
-    """(rate, channels, samples) from headers where possible — pass 1
-    must not hold (or even produce) decoded audio for the whole fleet:
+def _probe(path: str) -> Tuple[int, int, int, int]:
+    """(rate, channels, samples, bits) from headers where possible — pass
+    1 must not hold (or even produce) decoded audio for the whole fleet:
     a 1k-file job would pin ~10 GB, and lossy inputs would pay their
-    decode twice (probe + stage).  io.probe_audio reads WAV/FLAC chunk
-    headers and Ogg Vorbis/Opus identification + final-granule data;
-    only headerless formats fall back to a decode."""
+    decode twice (probe + stage).  A RIFF/WAVE file's chunk headers are
+    walked without reading its audio (io/pcm24.py); io.probe_audio reads
+    FLAC headers and Ogg Vorbis/Opus identification + final-granule data;
+    only headerless formats fall back to a decode.  ``bits`` is the depth
+    the fleet reads the file at: 24 for 24-bit integer PCM WAV, else 16."""
     from .io.audio import probe_audio
+    from .io.pcm24 import is_pcm24, read_header
 
-    return probe_audio(path)
+    with open(path, "rb") as f:
+        riff = f.read(4) == b"RIFF"
+    if riff:
+        h = read_header(path)
+        return h.rate, h.channels, h.frames, 24 if is_pcm24(h) else 16
+    return (*probe_audio(path), 16)
 
 
 def analyze_paths(
@@ -107,18 +123,22 @@ def analyze_paths(
     (search/packed.py); "auto" packs on the staging thread and ships
     whichever is smaller per batch — compressible masters ride the
     packed wire, noisy ones skip the overhead.  All three are
-    value-identical (the unpack is bit-exact).
+    value-identical (the unpack is bit-exact).  A 24-bit PCM WAV rides
+    neither 16-bit wire: "auto" ships its batch as the files' 3-byte
+    samples (pcm24), and "pcm16" or "packed" raise ``ValueError`` for it
+    before anything is decoded.
 
     ``device`` is where the sweeps run (default: the CUDA device;
     ``"cpu"`` for the CPU).
     """
     from .io import read_audio_pcm16
+    from .io.pcm24 import read_pcm24_into
     from .search.packed import (
         pack_adaptive,
         pack_residual,
         sweep_peaks_aux_packed,
     )
-    from .search.sweep import sweep_peaks_aux_pcm16
+    from .search.sweep import sweep_peaks_aux_pcm16, sweep_peaks_aux_pcm24
     from .utils.checkpoint import SweepCheckpoint
 
     if transport not in ("auto", "pcm16", "packed"):
@@ -133,11 +153,14 @@ def analyze_paths(
     buckets: Dict[tuple, List[str]] = {}
     meta: Dict[str, tuple] = {}
     for p in paths:
-        rate, channels, n = _probe(p)
+        rate, channels, n, bits = _probe(p)
+        if bits == 24 and transport != "auto":
+            raise ValueError(f"{p}: 24-bit PCM; transport {transport!r} "
+                             "carries 16 bits (use 'auto')")
         geom = offline_geometry(rate, blksiz)
         if ckpt is None and checkpoint:
             ckpt = SweepCheckpoint(checkpoint, blksiz=geom.blksiz)
-        key = _bucket_key(rate, channels, n, geom.parsiz)
+        key = _bucket_key(rate, channels, n, bits, geom.parsiz)
         meta[p] = (rate, geom)
         if ckpt is not None and p in ckpt:
             table, rot0 = ckpt.get(p)
@@ -153,12 +176,23 @@ def analyze_paths(
 
     def stage(group: List[str], key):
         """Decode a batch; returns the transport object to dispatch —
-        an int16 array (pcm16) or a PackedChunk.  Runs on the staging
-        thread (numpy and the host library only; no torch call but the
-        spans' ``record_function`` under a profiler session), so the pack
-        overlaps the previous batch's device pass."""
+        an int16 array (pcm16), a PackedChunk, or at 24 bits a (files,
+        n_pad, channels, 3) uint8 array of the files' samples (pcm24).
+        Runs on the staging thread (numpy and the host library only; no
+        torch call but the spans' ``record_function`` under a profiler
+        session), so the pack overlaps the previous batch's device pass."""
         with span("fleet.stage"):
-            rate, channels, n_pad = key
+            rate, channels, n_pad, bits = key
+            if bits == 24:
+                buf = np.zeros((len(group), n_pad, channels, 3), np.uint8)
+                for i, p in enumerate(group):
+                    with span("fleet.decode"):
+                        read_pcm24_into(p, buf[i])
+                # nothing to pack: the span records the wire shipped
+                with span("fleet.pack", transport="pcm24"):
+                    pass
+                count("fleet.wire_bytes", buf.nbytes)
+                return buf
             buf = np.zeros((len(group), channels, n_pad), np.int16)
             for i, p in enumerate(group):
                 with span("fleet.decode"):
@@ -188,6 +222,8 @@ def analyze_paths(
         with span("fleet.dispatch"):
             if isinstance(obj, PackedChunk):
                 return sweep_peaks_aux_packed(obj, geom, device=device)
+            if obj.dtype == np.uint8:
+                return sweep_peaks_aux_pcm24(obj, geom, device=device)
             return sweep_peaks_aux_pcm16(obj, geom, device=device)
 
     def finish(pending, rate) -> None:
@@ -209,7 +245,7 @@ def analyze_paths(
 
     try:
         for key, group in buckets.items():
-            rate, channels, n_pad = key
+            rate = key[0]
             geom = meta[group[0]][1]
             batches = [group[i : i + batch]
                        for i in range(0, len(group), batch)]
@@ -283,16 +319,16 @@ def apply_paths(
     buckets: Dict[tuple, List[str]] = {}
     meta: Dict[str, tuple] = {}
     for p in paths:
-        rate, channels, n = _probe(p)
+        rate, channels, n, bits = _probe(p)
         geom = offline_geometry(rate, blksiz)
-        key = _bucket_key(rate, channels, n, geom.parsiz)
+        key = _bucket_key(rate, channels, n, bits, geom.parsiz)
         meta[p] = (rate, geom)
         buckets.setdefault(key, []).append(p)
 
     pool = ThreadPoolExecutor(1)
 
     def stage(group: List[str], key):
-        rate, channels, n_pad = key
+        rate, channels, n_pad, _bits = key
         buf = np.zeros((len(group), channels, n_pad), np.float32)
         lens = []
         metas = []
@@ -322,7 +358,7 @@ def apply_paths(
 
     try:
         for key, group in buckets.items():
-            rate, _channels, _n_pad = key
+            rate = key[0]
             geom = meta[group[0]][1]
             parts = [group[i : i + batch]
                      for i in range(0, len(group), batch)]
@@ -374,7 +410,9 @@ def _main(argv=None, device=None) -> int:
     ap.add_argument("--transport", default="auto",
                     choices=("auto", "pcm16", "packed"),
                     help="host->device wire format (auto: ship the "
-                         "smaller of packed residuals / raw pcm16)")
+                         "smaller of packed residuals / raw pcm16; a "
+                         "24-bit PCM WAV ships its raw 24-bit samples, "
+                         "which pcm16 and packed refuse)")
     ap.add_argument("--apply", action="store_true",
                     help="write rotated copies of every file")
     ap.add_argument("--outdir", default=None,

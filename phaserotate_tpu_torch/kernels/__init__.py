@@ -8,6 +8,7 @@ from .fused_conv import (
     fused_rotate_fir,
     fused_rotate_fir_plain,
 )
+from .pcm24 import pcm24_widen, pcm24_widen_plain
 from .rotate_peak import (
     peak_kernel,
     peak_plain,
@@ -36,6 +37,8 @@ __all__ = [
     "launches",
     "peak_kernel",
     "peak_plain",
+    "pcm24_widen",
+    "pcm24_widen_plain",
     "reset_launches",
     "rotate_peak_sweep_kernel",
     "rotate_peak_sweep_plain",

@@ -25,7 +25,8 @@ __all__ = ["BUILD_DIR", "build", "check", "count_launch", "launches", "lib",
            "reset_launches"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("fused_conv.cu", "rotate_peak.cu", "stream_conv.cu")
+_SOURCES = ("fused_conv.cu", "pcm24.cu", "rotate_peak.cu",
+            "stream_conv.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "phaserotate_tpu_torch"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # compile flags; no --use_fast_math: sincosf must stay full precision
@@ -34,7 +35,7 @@ NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 
 launches = {"rotate_peak_sweep": 0, "hilbert_small": 0, "rotate_small": 0,
             "stream_mix": 0, "fused_hilbert": 0, "fused_rotate_fir": 0,
-            "peak": 0}
+            "peak": 0, "pcm24_widen": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -68,6 +69,9 @@ _SIGNATURES = {
     "prt_fused_conv_grid": (ctypes.c_int, ctypes.c_int, _P),
     # x, n, out, stream
     "prt_peak": (_P, ctypes.c_longlong, _P, _P),
+    # 24-bit payload, out, rows, channels, frames, stream
+    "prt_pcm24_widen": (_P, _P, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_longlong, _P),
 }
 
 

@@ -33,12 +33,15 @@ from ..core.angles import MAXSAMPLE, all_angle_cos_sin, sincos_lut
 from ..core.device import as_f32, resolve_device
 from ..core.fir import offline_fir_spectrum
 from ..core.sizes import OfflineGeometry
+from ..kernels.pcm24 import pcm24_widen
 from ..kernels.rotate_peak import rotate_peak_sweep_kernel
 from ..kernels.stream_conv import hilbert_small, small_conv_supported
 from ..ops.convolve import partitioned_convolve
+from ..utils.profiling import span
 
 __all__ = ["sweep_peaks", "sweep_peaks_aux", "sweep_peaks_aux_pcm16",
-           "apply_angles", "hilbert_offline", "aligned_pair"]
+           "sweep_peaks_aux_pcm24", "apply_angles", "hilbert_offline",
+           "aligned_pair"]
 
 
 def _offline_frames(x: torch.Tensor, parsiz: int) -> int:
@@ -156,6 +159,25 @@ def sweep_peaks_aux_pcm16(audio_i16, geom: OfflineGeometry,
                           device=resolve_device(device, audio_i16))
     x = x16.to(torch.float32) * (1.0 / 32768.0)
     return _sweep_impl(x, geom, chunk)
+
+
+def sweep_peaks_aux_pcm24(payload, geom: OfflineGeometry, device=None):
+    """:func:`sweep_peaks_aux` over 24-bit PCM as the files hold it.
+
+    Ingest path for 24-bit WAVs: ``payload`` is (files, n_pad, channels,
+    3) uint8, each row one file's interleaved little-endian 3-byte
+    samples, zero-padded (``io.pcm24.read_pcm24_into`` fills the rows).
+    It goes to the device as it is, 3 bytes a sample, and
+    ``kernels.pcm24.pcm24_widen`` turns it there into (files, channels,
+    n_pad) float32 ``int24 / 2^23``, which is exact, under the span
+    ``pcm24.widen`` (attributes ``samples`` and ``batch``; its device time
+    on a card).
+    """
+    raw = torch.as_tensor(payload, device=resolve_device(device, payload))
+    with span("pcm24.widen", device=raw.device) as widening:
+        x = pcm24_widen(raw)
+        widening.set(samples=x.numel(), batch=x.shape[0])
+    return _sweep_impl(x, geom, 4096)
 
 
 def apply_angles(audio, angle_units, geom: OfflineGeometry,

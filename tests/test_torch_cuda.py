@@ -618,6 +618,82 @@ def test_fleet_transports_equal_on_card(dev, tmp_path):
                       - read_audio(one)[0]).max() < 1e-6
 
 
+@pytest.mark.parametrize("rows,channels,n,offset", [
+    (3, 2, 5 * 4096, 0), (2, 1, 1000, 0), (2, 2, 1001, 0), (1, 3, 777, 0),
+    (4, 2, 4096, 1), (1, 1, 8, 0)])
+def test_pcm24_widen_bit_equal(dev, rows, channels, n, offset):
+    """The widen kernel against its plain twin on seeded payloads: the
+    word-load kernel (mono and stereo, frames a multiple of 4, aligned)
+    and the byte kernel (odd lengths, three channels, a payload one byte
+    off alignment), with the 24-bit extremes in every row."""
+    from phaserotate_tpu_torch.kernels.pcm24 import (pcm24_widen,
+                                                     pcm24_widen_plain)
+
+    rng = np.random.default_rng(rows * 1000 + channels * 100 + n + offset)
+    width = n * channels * 3
+    flat = rng.integers(0, 256, rows * width + offset, np.uint8)
+    rows_of = flat[offset:].reshape(rows, width)
+    ext = np.array([0x00, 0x00, 0x80, 0xFF, 0xFF, 0xFF, 0x00, 0x00, 0x00,
+                    0xFF, 0xFF, 0x7F], np.uint8)  # -2^23, -1, 0, 2^23 - 1
+    rows_of[:, : min(ext.size, width)] = ext[:width]
+    shape = (rows, n, channels, 3)
+    raw = torch.from_numpy(rows_of.copy()).reshape(shape)
+    on_card = torch.from_numpy(flat).to(dev)[offset:].reshape(shape)
+    before = _build.launches["pcm24_widen"]
+    got = pcm24_widen(on_card)
+    torch.cuda.synchronize()
+    assert _build.launches["pcm24_widen"] == before + 1
+    want = pcm24_widen_plain(raw)
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+
+
+def test_fleet_24bit_on_card_equals_cpu(dev, tmp_path, monkeypatch):
+    """A 24-bit stereo fleet at 96 kHz (two buckets, blksiz 16384) on the
+    card: the pcm24 wire and the widen kernel; the same angles and input
+    peaks as on the CPU, and tables within 2e-5 (the card's convolution
+    rounds otherwise than the CPU's)."""
+    from phaserotate_tpu_torch import fleet
+
+    rng = np.random.default_rng(96)
+    paths = []
+    for i, n in enumerate((100000, 110001, 300000)):
+        q = rng.integers(-(1 << 21), 1 << 21, (2, n))
+        t = np.arange(n) / 96000.0
+        q += np.rint(5e6 * np.sin(2 * np.pi * (200 + 90 * i) * t)).astype(
+            q.dtype)
+        p = str(tmp_path / f"hi{i}.wav")
+        write_wav(p, (q / float(1 << 23)).astype(np.float32), 96000,
+                  bits=24, float_format=False)
+        paths.append(p)
+    select = fleet.select_min_peak_angles_batch
+    runs = {}
+    for where in ("cuda", "cpu"):
+        tables, order = [], []
+
+        def capture(t, *a, _tables=tables, **kw):
+            _tables.extend(np.array(row) for row in t)
+            return select(t, *a, **kw)
+
+        monkeypatch.setattr(fleet, "select_min_peak_angles_batch", capture)
+        _build.reset_launches()
+        res = fleet.analyze_paths(
+            paths, batch=2, device=where,
+            progress=lambda p, r, cached, _order=order: _order.append(p))
+        if where == "cuda":
+            assert _build.launches["pcm24_widen"] == 2
+        runs[where] = (res, tables, order)
+    (card_res, card_tables, card_order), (cpu_res, cpu_tables, cpu_order) = (
+        runs["cuda"], runs["cpu"])
+    assert card_order == cpu_order and len(card_tables) == len(paths)
+    for card, cpu in zip(card_tables, cpu_tables):
+        assert np.array_equal(card[:, 0], cpu[:, 0])
+        assert np.abs(card - cpu).max() < 2e-5
+    for p in paths:
+        g, w = card_res[p][0], cpu_res[p][0]
+        assert g.angles_units == w.angles_units
+        np.testing.assert_array_equal(g.peak_zero, w.peak_zero)
+
+
 def _wired_plugin(options, stereo=True, n=1024):
     from phaserotate_tpu_torch import plugin as pp
 

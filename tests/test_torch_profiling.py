@@ -9,7 +9,9 @@ transport records one ``fleet.decode`` per file, one ``fleet.stage``,
 ``fleet.pack``, ``fleet.stage_wait``, ``fleet.dispatch`` and
 ``fleet.readback`` per batch, ``packed.unpack`` per packed batch,
 counters whose bytes equal what was shipped, and ``packed.pack_workers``
-once per host pack.
+once per host pack; on 24-bit WAVs it records a ``pcm24`` ``fleet.pack``
+and a ``pcm24.widen`` per batch and counts the payload in
+``fleet.wire_bytes``.
 """
 
 import json
@@ -275,6 +277,55 @@ def test_fleet_records_its_batches(tmp_path, monkeypatch, transport):
     # every pack, shipped or not, counts its workers once
     assert len(values("packed.pack_workers")) == (
         0 if transport == "pcm16" else batches)
+
+
+def test_fleet_records_its_24bit_batches(tmp_path, monkeypatch):
+    """A 24-bit fleet: one ``fleet.decode`` per file, per batch a
+    ``fleet.pack`` whose ``transport`` is pcm24 and a ``pcm24.widen`` with
+    the samples it widened and the batch's files (``device_ms`` on a card
+    only), and ``fleet.wire_bytes`` the staged payload's bytes; no pcm16
+    counter and no pack.  Off, the same call records nothing and makes no
+    CUDA event."""
+    rng = np.random.default_rng(24)
+    paths = []
+    for i, n in enumerate((20000, 21001, 50000)):
+        x = rng.integers(-(1 << 23), 1 << 23, (2, n)) / float(1 << 23)
+        p = str(tmp_path / f"hi{i}.wav")
+        write_wav(p, x.astype(np.float32), RATE, bits=24, float_format=False)
+        paths.append(p)
+    staged = []
+    orig = sweep.sweep_peaks_aux_pcm24
+
+    def logged(buf, *a, **k):
+        staged.append((buf.nbytes, buf.nbytes // 3, buf.shape[0]))
+        return orig(buf, *a, **k)
+
+    monkeypatch.setattr(sweep, "sweep_peaks_aux_pcm24", logged)
+    monkeypatch.setattr(torch.cuda, "Event", _NoEvent)
+    fleet.analyze_paths(paths, batch=2, blksiz=2048, device="cpu")
+    assert drain() == [] and len(staged) == 2
+    staged.clear()
+    with recording():
+        fleet.analyze_paths(paths, batch=2, blksiz=2048, device="cpu")
+    got = drain()
+    spans = [r for r in got if isinstance(r, SpanRecord)]
+
+    def named(name):
+        return [r for r in spans if r.name == name]
+
+    assert len(named("fleet.decode")) == len(paths)
+    assert all(r.thread.startswith("fleet-stage")
+               for r in named("fleet.decode") + named("fleet.pack"))
+    assert [r.attrs["transport"] for r in named("fleet.pack")] == [
+        "pcm24"] * len(staged)
+    widen = named("pcm24.widen")
+    assert [(r.attrs["samples"], r.attrs["batch"]) for r in widen] == [
+        (samples, files) for _, samples, files in staged]
+    assert all("device_ms" not in r.attrs for r in widen)
+    assert not named("packed.unpack")
+    counts = [(r.name, r.n) for r in got if isinstance(r, CountRecord)]
+    assert counts == [("fleet.wire_bytes", nbytes)
+                      for nbytes, _, _ in staged]
 
 
 def test_fleet_profile_variable_traces_the_spans(tmp_path, monkeypatch,
