@@ -36,6 +36,11 @@ then, on the first CUDA device:
    launch); ``fleet.analyze_paths`` per transport
    (pcm16, packed, auto: equal tables and angles, ``auto`` shipping both
    kinds of batch; files/s, wire bytes and peak device memory printed);
+   eight 24-bit copies, every byte of their wire from the pinned staging
+   ring, then one ``fleet ring`` line: the host-to-device rate from a
+   pinned slot at the 96 kHz catalogue's longest batch (8 x 2 x 2^26
+   frames of pcm24) beside the pageable rate of the same payload, the
+   pinned share and the ring's pinned bytes;
    six files against ``find_min_peak_angle`` and ``_apply_one``; one batch
    step by step (decode, pack, copy, unpack, sweep, selection), after
    the counts are read and with ``hilbert_small`` and the sweep kernel
@@ -707,6 +712,69 @@ def staging_breakdown(paths, geom, dev, card: str, label: str) -> None:
           f"(plain sweep {t_plain:.6f} s)")
 
 
+def ring_copy_rate(dev, card: str, times: dict, pinned_share: float) -> None:
+    """The fleet's host-to-device rate from a pinned slot of its staging
+    ring, at the 96 kHz catalogue's longest batch (8 x 2 x 2^26 frames of
+    pcm24, 3.2 GB), copied as ``fleet.analyze_paths`` copies it (one
+    non-blocking copy and an event), beside the pageable rate of the same
+    payload (``torch.as_tensor`` of a numpy array, the path of a batch
+    over the ring's share); the best of three each, and the time the
+    dispatch thread is held by the ring's copy.  ``pinned_share`` is the
+    24-bit run's ``fleet.pinned_bytes`` over its ``fleet.wire_bytes``.
+    The pinned allocator's bytes (active and cached) follow the ring's."""
+    import torch
+
+    from phaserotate_tpu_torch import fleet as pfleet
+
+    key = (96000, 2, 1 << 26, 24)
+    shape = (8, 1 << 26, 2, 3)
+    nbytes = int(np.prod(shape))
+    ring = pfleet._RING
+    with ring.lock, phase("fleet_ring_copy_3_2_GB", card, times):
+        t0 = time.perf_counter()
+        ring.reserve(pfleet._slot_bytes(pfleet._wire_layout(key, 8, "auto")),
+                     pinned=True)
+        reserve_s = time.perf_counter() - t0
+        slot = ring.take()
+        buf = slot.view(0, shape, np.uint8)
+        buf.fill(0x5A)
+        buf[-1, -1, -1] = 0xA5
+        page = buf.copy()
+        rates = {"pinned": [], "pageable": []}
+        held = []
+        for _ in range(3):
+            for kind in ("pinned", "pageable"):
+                sync()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                t0 = time.perf_counter()
+                if kind == "pinned":
+                    got = slot.send(buf, dev)
+                    held.append(time.perf_counter() - t0)
+                else:
+                    got = torch.as_tensor(page, device=dev)
+                end.record()
+                sync()
+                rates[kind].append(nbytes / start.elapsed_time(end) / 1e6)
+                check(tuple(got.shape) == shape
+                      and int(got[-1, -1, -1, -1]) == 0xA5
+                      and int(got[0, 0, 0, 0]) == 0x5A,
+                      f"the {kind} copy of the ring's payload differs")
+                del got
+        slot.wait()
+        del page
+    stats = getattr(torch.cuda, "host_memory_stats", dict)()
+    held_pinned = stats.get("allocated_bytes.current")
+    print(f"fleet ring: host-to-device {max(rates['pinned'])!r} GB/s from a "
+          f"pinned slot ({min(held) * 1e3!r} ms on the dispatch thread) vs "
+          f"{max(rates['pageable'])!r} GB/s pageable, {nbytes} bytes (8 x 2 "
+          f"x 2^26 frames of pcm24); pinned share of the 24-bit run's wire "
+          f"{pinned_share!r}; ring pinned bytes {ring.pinned_bytes} "
+          f"(reserved in {reserve_s!r} s), the pinned allocator holding "
+          f"{held_pinned} [{card}]")
+
+
 def drive_catalogue(tmp, dev, card, times, x4, fleet, stems, stem_degs,
                     geom) -> dict:
     """The third counted run: the fleet front end over a catalogue on
@@ -883,8 +951,17 @@ def drive_catalogue(tmp, dev, card, times, x4, fleet, stems, stem_degs,
                 progress=lambda p, r, cached: deep_order.append(p))
     finally:
         pfleet.select_min_peak_angles_batch = select
-    kinds = [r.attrs["transport"] for r in drain() if r.name == "fleet.pack"]
+    records = drain()
+    kinds = [r.attrs["transport"] for r in records if r.name == "fleet.pack"]
     check(kinds == ["pcm24"], f"the 24-bit copies shipped {kinds}")
+    shipped = {name: sum(r.n for r in records if isinstance(r, CountRecord)
+                         and r.name == name)
+               for name in ("fleet.wire_bytes", "fleet.pinned_bytes")}
+    check(shipped["fleet.pinned_bytes"] == shipped["fleet.wire_bytes"] > 0,
+          f"the 24-bit copies did not all ship from the pinned ring: "
+          f"{shipped}")
+    ring_copy_rate(dev, card, times, shipped["fleet.pinned_bytes"]
+                   / shipped["fleet.wire_bytes"])
     n_pad = pfleet._bucket_key(RATE, 2, max(x.shape[1] for x in deep_x),
                                24, geom.parsiz)[2]
     x_pad = np.zeros((len(deep), 2, n_pad), np.float32)

@@ -24,10 +24,19 @@ payload straight into the batch buffer, 3 bytes a sample) and shipped as
 it is (the ``pcm24`` wire), widened on the device
 (search.sweep_peaks_aux_pcm24); the 16-bit transports would drop its low
 8 bits, so ``pcm16`` and ``packed`` refuse such a file.  Every other
-source (24-bit FLAC or AIFF among them) takes the int16 path.  CUDA
-launches are asynchronous, so the decode of batch k+1 overlaps the device
-pass of batch k; a batch's only synchronisation is the readback of its
-tables.
+source (24-bit FLAC or AIFF among them) takes the int16 path.
+
+The staging thread decodes each batch into one of two reused host slots
+(``_StagingRing``, kept for the life of the process): pinned where the
+sweeps run on a card, so the wire goes over in one non-blocking copy
+from the slot, and the dispatch thread only enqueues it.  A CUDA event
+after the copy tells the staging thread when it may write that slot
+again.  CUDA launches are asynchronous, so the decode of batch k+1
+overlaps the copy and device pass of batch k, across a bucket's edge
+too; a batch's only synchronisation is the readback of its tables.  A
+batch larger than a slot's share of the ring's cap (a quarter of the
+host's memory) is staged in a fresh pageable array and copied as it was
+before the ring.
 
 Files bucket by (rate, channels, padded length, depth read); padding with
 silence is EXACT for the peak table: beyond the flush block the Hilbert
@@ -44,8 +53,10 @@ Tracing (utils/profiling): the staging thread (``fleet-stage``) records
 per batch (attribute ``transport``: packed, pcm16 or pcm24); the dispatch
 loop records ``fleet.stage_wait`` (waiting for the staging thread),
 ``fleet.dispatch`` (transfer, unpack or widen, sweep enqueue) and
-``fleet.readback``; each batch counts ``fleet.wire_bytes`` and
-``fleet.pcm16_bytes`` (a 24-bit batch only the former), and
+``fleet.readback``; each batch counts ``fleet.wire_bytes``,
+``fleet.pinned_bytes`` (the wire bytes copied from a pinned slot: 0 on
+the CPU and for a batch staged pageable) and ``fleet.pcm16_bytes`` (not
+for a 24-bit batch), and
 ``search.sweep_peaks_aux_pcm24`` records ``pcm24.widen``.  They record
 only under a ``torch.profiler`` session or a ``recording()`` scope;
 ``PHASEROTATE_TPU_PROFILE=<dir>`` writes a profile of the whole command
@@ -56,12 +67,15 @@ kernels.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .core.angles import SUBSAMPLE
 from .core.device import resolve_device
@@ -100,6 +114,164 @@ def _probe(path: str) -> Tuple[int, int, int, int]:
     return (*probe_audio(path), 16)
 
 
+# where each array of a slot starts: a multiple of this many bytes, so
+# its copy on the card is aligned for its dtype and for vector loads
+_ALIGN = 256
+_TORCH_DTYPE = {np.dtype(np.uint8): torch.uint8,
+                np.dtype(np.int16): torch.int16,
+                np.dtype(np.int32): torch.int32}
+
+
+def _aligned(nbytes: int) -> int:
+    return -(-nbytes // _ALIGN) * _ALIGN
+
+
+def _ring_cap_bytes() -> int:
+    """The most host memory the staging ring may hold: a quarter of the
+    host's physical memory (0 where the host does not say)."""
+    try:
+        return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES") // 4
+    except (ValueError, OSError):
+        return 0
+
+
+def _wire_layout(key, files: int, transport: str) -> Tuple[int, int, int]:
+    """(pcm bytes, scratch words, metadata bytes) of a batch's slot.
+
+    A 24-bit batch is its (files, n_pad, channels, 3) bytes alone.  A
+    16-bit batch is its int16 samples, then the packer's scratch, then
+    room for the packed wire's per-block widths and offsets and
+    per-stream orders, so a packed batch ships as one range of the slot.
+    pcm16 lays out the scratch of auto, whose batches it warms up."""
+    from .search.packed import BLOCK, scratch_words
+
+    _rate, channels, n_pad, bits = key
+    if bits == 24:
+        return files * n_pad * channels * 3, 0, 0
+    shape = (files, channels, n_pad)
+    streams = files * channels
+    meta = (2 * _aligned(streams * -(-n_pad // BLOCK) * 4)
+            + _aligned(streams * 4))
+    return (files * channels * n_pad * 2,
+            scratch_words(shape, None if transport == "packed" else 0.9),
+            meta)
+
+
+def _slot_bytes(layout: Tuple[int, int, int]) -> int:
+    pcm, words, meta = layout
+    return _aligned(pcm) + _aligned(words * 4) + meta
+
+
+class _Slot:
+    """One host buffer of the ring: a (bytes,) uint8 tensor, its numpy
+    view, and the CUDA event recorded after the last copy from it."""
+
+    def __init__(self) -> None:
+        self.host: Optional[torch.Tensor] = None
+        self.array: Optional[np.ndarray] = None
+        self.copied = None
+
+    def wait(self) -> None:
+        """Return once the last copy from the slot has ended (the wait
+        releases the GIL)."""
+        done, self.copied = self.copied, None
+        if done is not None:
+            done.synchronize()
+
+    def view(self, offset: int, shape, dtype) -> np.ndarray:
+        nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
+        return self.array[offset : offset + nbytes].view(dtype).reshape(shape)
+
+    def offset(self, a: np.ndarray) -> int:
+        """The byte offset in the slot of ``a``, a contiguous view of it."""
+        return a.ctypes.data - self.array.ctypes.data
+
+    def send(self, obj, device):
+        """``obj`` (an array, or a PackedChunk of arrays, all inside the
+        slot) on ``device``: one non-blocking copy of the byte range that
+        holds them, then an event the staging thread waits on before it
+        writes the slot again."""
+        from .search.packed import PackedChunk
+
+        fields = ("words", "widths", "woffs", "order")
+        arrays = ([getattr(obj, f) for f in fields]
+                  if isinstance(obj, PackedChunk) else [obj])
+        offs = [self.offset(a) for a in arrays]
+        lo = min(offs)
+        hi = max(o + a.nbytes for o, a in zip(offs, arrays))
+        wire = self.host[lo:hi].to(device, non_blocking=True)
+        self.copied = torch.cuda.Event()
+        self.copied.record(torch.cuda.current_stream(device))
+        moved = [wire[o - lo : o - lo + a.nbytes]
+                 .view(_TORCH_DTYPE[a.dtype]).view(a.shape)
+                 for o, a in zip(offs, arrays)]
+        if isinstance(obj, PackedChunk):
+            return dataclasses.replace(obj, **dict(zip(fields, moved)))
+        return moved[0]
+
+
+class _StagingRing:
+    """Two host buffers the staging thread writes each batch's wire into,
+    in turn, for the life of the process.
+
+    Pinned where the sweeps run on a card, so the copy to it is a
+    non-blocking DMA; plain host memory on the CPU.  Both slots grow
+    together, to the largest batch of an ``analyze_paths`` call, at the
+    call's start while nothing is copied from them, and never shrink.
+    Each slot holds at most half of :func:`_ring_cap_bytes`; a batch
+    larger than that is staged in a fresh pageable array instead.  One
+    call uses the ring at a time (``lock``); a concurrent call stages
+    pageable."""
+
+    def __init__(self) -> None:
+        self.lock = threading.Lock()
+        self.slots = [_Slot(), _Slot()]
+        self.nbytes = 0          # each slot's size
+        self.pinned = False
+        self._next = 0
+
+    def fits(self, nbytes: int) -> bool:
+        return _pow2(nbytes) <= _ring_cap_bytes() // len(self.slots)
+
+    def reserve(self, nbytes: int, pinned: bool) -> None:
+        """Grow every slot to hold ``nbytes`` (rounded up to a power of
+        two, as the pinned host allocator rounds), pinned or not."""
+        size = _pow2(nbytes)
+        if pinned == self.pinned and size <= self.nbytes:
+            return
+        for slot in self.slots:
+            slot.wait()
+            slot.host = slot.array = None
+        if self.pinned:
+            # hand the old slots' pages back rather than keep them cached
+            empty = getattr(torch._C, "_host_emptyCache", None)
+            if empty is not None:
+                empty()
+        for slot in self.slots:
+            slot.host = torch.empty(size, dtype=torch.uint8,
+                                    pin_memory=pinned)
+            slot.array = slot.host.numpy()
+        self.nbytes, self.pinned = size, pinned
+
+    def take(self) -> _Slot:
+        """The next slot, once the last copy from it has ended."""
+        slot = self.slots[self._next]
+        self._next = (self._next + 1) % len(self.slots)
+        slot.wait()
+        return slot
+
+    @property
+    def pinned_bytes(self) -> int:
+        return self.nbytes * len(self.slots) if self.pinned else 0
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+_RING = _StagingRing()
+
+
 def analyze_paths(
     paths: Sequence[str],
     blksiz: int = 0,
@@ -113,10 +285,10 @@ def analyze_paths(
 ) -> Dict[str, Tuple[SearchResult, int]]:
     """Analyze many files -> {path: (SearchResult, rate)}.
 
-    Files are decoded to int16 PCM on a background thread (overlapped
-    with the device sweep of the previous batch), bucketed by geometry,
-    zero-padded to the bucket length, and swept ``batch`` files per
-    device dispatch.
+    Files are bucketed by geometry, decoded to int16 PCM on a background
+    thread into the staging ring (overlapped with the copy and device
+    sweep of the previous batch), zero-padded to the bucket length, and
+    swept ``batch`` files per device dispatch.
 
     ``transport`` picks the host->device wire format: "pcm16" ships the
     raw 16-bit bitcast; "packed" ships the lossless residual transport
@@ -172,64 +344,94 @@ def analyze_paths(
             continue
         buckets.setdefault(key, []).append(p)
 
+    # every batch of the call, bucket after bucket: the staging thread
+    # runs one batch ahead across a bucket's edge too
+    batches = [(group[i : i + batch], key)
+               for key, group in buckets.items()
+               for i in range(0, len(group), batch)]
     pool = ThreadPoolExecutor(1, thread_name_prefix="fleet-stage")
+    ring = _RING if batches and _RING.lock.acquire(blocking=False) else None
+    pinned = ring is not None and device.type == "cuda"
 
-    def stage(group: List[str], key):
-        """Decode a batch; returns the transport object to dispatch —
-        an int16 array (pcm16), a PackedChunk, or at 24 bits a (files,
-        n_pad, channels, 3) uint8 array of the files' samples (pcm24).
-        Runs on the staging thread (numpy and the host library only; no
-        torch call but the spans' ``record_function`` under a profiler
-        session), so the pack overlaps the previous batch's device pass."""
+    def stage(names: List[str], key, on_ring: bool):
+        """Decode a batch into the ring's next slot (a fresh pageable
+        array where the batch does not fit one); returns the wire to
+        dispatch, an int16 array (pcm16), a PackedChunk, or at 24 bits a
+        (files, n_pad, channels, 3) uint8 array of the files' samples
+        (pcm24), and the slot that holds it (None).  Each row's tail past
+        the file is zeroed, so a reused slot never leaks an earlier batch
+        into the pad.  Runs on the staging thread (numpy and the host
+        library only; no torch call but the slot's event wait and the
+        spans' ``record_function`` under a profiler session), so the pack
+        overlaps the previous batch's copy and device pass."""
         with span("fleet.stage"):
-            rate, channels, n_pad, bits = key
+            _rate, channels, n_pad, bits = key
+            layout = _wire_layout(key, len(names), transport)
+            slot = ring.take() if on_ring else None
             if bits == 24:
-                buf = np.zeros((len(group), n_pad, channels, 3), np.uint8)
-                for i, p in enumerate(group):
+                shape = (len(names), n_pad, channels, 3)
+                buf = (slot.view(0, shape, np.uint8) if slot is not None
+                       else np.empty(shape, np.uint8))
+                for i, p in enumerate(names):
                     with span("fleet.decode"):
-                        read_pcm24_into(p, buf[i])
+                        frames = read_pcm24_into(p, buf[i])
+                    buf[i, frames:] = 0
                 # nothing to pack: the span records the wire shipped
                 with span("fleet.pack", transport="pcm24"):
                     pass
                 count("fleet.wire_bytes", buf.nbytes)
-                return buf
-            buf = np.zeros((len(group), channels, n_pad), np.int16)
-            for i, p in enumerate(group):
+                count("fleet.pinned_bytes", buf.nbytes if pinned and on_ring
+                      else 0)
+                return buf, slot
+            shape = (len(names), channels, n_pad)
+            buf = (slot.view(0, shape, np.int16) if slot is not None
+                   else np.empty(shape, np.int16))
+            for i, p in enumerate(names):
                 with span("fleet.decode"):
                     audio = read_audio_pcm16(p)[0]
-                buf[i, :, : min(audio.shape[1], n_pad)] = \
-                    audio[:, :n_pad]
+                m = min(audio.shape[1], n_pad)
+                buf[i, :, :m] = audio[:, :n_pad]
+                buf[i, :, m:] = 0
             with span("fleet.pack") as packing:
                 obj = buf
-                if transport == "packed":
-                    obj = pack_residual(buf)
-                elif transport == "auto":
-                    scratch = np.empty(
-                        max(1 << 16, buf.size * 16 // 32), np.int32)
-                    pk = pack_adaptive(buf, scratch)
-                    if pk is not None:
-                        obj = pk
+                if transport != "pcm16":
+                    words = layout[1]
+                    scratch = (slot.view(_aligned(buf.nbytes), (words,),
+                                         np.int32)
+                               if slot is not None
+                               else np.empty(words, np.int32))
+                    if transport == "packed":
+                        obj = pack_residual(buf, scratch)
+                    else:
+                        obj = pack_adaptive(buf, scratch) or buf
                 packed = obj is not buf
                 packing.set(transport="packed" if packed else "pcm16")
-            count("fleet.wire_bytes",
-                  obj.wire_bytes if packed else buf.nbytes)
+            if packed and slot is not None:
+                obj = _metadata_into(slot, obj)
+            wire = obj.wire_bytes if packed else buf.nbytes
+            count("fleet.wire_bytes", wire)
+            count("fleet.pinned_bytes", wire if pinned and on_ring else 0)
             count("fleet.pcm16_bytes", buf.nbytes)
-            return obj
+            return obj, slot
 
-    def dispatch(obj, geom):
+    def dispatch(wire, slot: Optional[_Slot], geom):
         from .search.packed import PackedChunk
 
         with span("fleet.dispatch"):
-            if isinstance(obj, PackedChunk):
-                return sweep_peaks_aux_packed(obj, geom, device=device)
-            if obj.dtype == np.uint8:
-                return sweep_peaks_aux_pcm24(obj, geom, device=device)
-            return sweep_peaks_aux_pcm16(obj, geom, device=device)
+            if isinstance(wire, PackedChunk):
+                sweep = sweep_peaks_aux_packed
+            elif wire.dtype == np.uint8:
+                sweep = sweep_peaks_aux_pcm24
+            else:
+                sweep = sweep_peaks_aux_pcm16
+            if pinned and slot is not None:
+                wire = slot.send(wire, device)
+            return sweep(wire, geom, device=device)
 
-    def finish(pending, rate) -> None:
+    def finish(pending) -> None:
         """Read one in-flight sweep back (the batch's only
         synchronisation) and emit its selections."""
-        names, handles = pending
+        names, rate, handles = pending
         with span("fleet.readback"):
             tables = handles[0].cpu().numpy()
             rot0 = handles[1].cpu().numpy()
@@ -244,32 +446,51 @@ def analyze_paths(
                 progress(p, sel[i], cached=False)
 
     try:
-        for key, group in buckets.items():
-            rate = key[0]
-            geom = meta[group[0]][1]
-            batches = [group[i : i + batch]
-                       for i in range(0, len(group), batch)]
-            fut = pool.submit(stage, batches[0], key)
-            # one batch of readback slack: batch k's sweep is read back
-            # only after batch k+1's transfer+sweep were dispatched, so
-            # the card always has the next batch queued (the copy from
-            # stage's fresh pageable buffer has ended when dispatch
-            # returns, so the buffer need not outlive it)
-            pending = None
-            for bi, names in enumerate(batches):
-                with span("fleet.stage_wait"):
-                    obj = fut.result()
-                if bi + 1 < len(batches):
-                    fut = pool.submit(stage, batches[bi + 1], key)
-                handles = dispatch(obj, geom)
-                if pending is not None:
-                    finish(pending, rate)
-                pending = (names, handles)
+        sizes = [_slot_bytes(_wire_layout(key, len(names), transport))
+                 for names, key in batches]
+        plan = [(names, key, ring is not None and ring.fits(n))
+                for (names, key), n in zip(batches, sizes)]
+        fitting = [n for n, (_, _, on) in zip(sizes, plan) if on]
+        if fitting:
+            ring.reserve(max(fitting), pinned)
+        # one batch of readback slack: batch k's sweep is read back only
+        # after batch k+1's transfer and sweep were enqueued, so the card
+        # always has the next batch queued; the staging thread fills the
+        # other slot meanwhile, once batch k-1's copy from it has ended
+        # (the event that ``send`` recorded), and a bucket's edge is no
+        # different
+        fut = pool.submit(stage, *plan[0]) if plan else None
+        pending = None
+        for bi, (names, key, _) in enumerate(plan):
+            with span("fleet.stage_wait"):
+                wire, slot = fut.result()
+            if bi + 1 < len(plan):
+                fut = pool.submit(stage, *plan[bi + 1])
+            handles = dispatch(wire, slot, meta[names[0]][1])
             if pending is not None:
-                finish(pending, rate)
+                finish(pending)
+            pending = (names, key[0], handles)
+        if pending is not None:
+            finish(pending)
     finally:
         pool.shutdown()
+        if ring is not None:
+            ring.lock.release()
     return results
+
+
+def _metadata_into(slot: _Slot, pk):
+    """``pk`` with its widths, offsets and orders copied into ``slot``
+    right after its words, which the packer wrote there: the packed wire
+    is then one range of the slot."""
+    off = slot.offset(pk.words) + _aligned(pk.words.nbytes)
+    moved = {}
+    for name in ("widths", "woffs", "order"):
+        a = getattr(pk, name)
+        moved[name] = slot.view(off, a.shape, a.dtype)
+        moved[name][...] = a
+        off += _aligned(a.nbytes)
+    return dataclasses.replace(pk, **moved)
 
 
 def _apply_one(path: str, outdir: str, result: SearchResult,

@@ -233,11 +233,9 @@ def _pack_residual_host(streams16: np.ndarray,
                         n: int, shape) -> PackedChunk:
     """The host packer's path of :func:`pack_residual`."""
     widths, woffs, order, total, workers = _host_layout(streams16)
-    S, nb = widths.shape
     wpad = _grid_pad(total + 1)
-    # worst case: the chosen order never beats order 0's <= 16 b/s
-    cap = _grid_pad(S * nb * (BLOCK // 2) + 1)
-    if out_words is not None and out_words.size >= cap:
+    if (out_words is not None
+            and out_words.size >= scratch_words(streams16.shape, None)):
         words = out_words[:wpad]
     else:
         words = np.empty(wpad, np.int32)
@@ -251,6 +249,24 @@ def packed_bits_per_sample(chunk: PackedChunk) -> float:
     """Achieved wire bits per audio sample, metadata included."""
     n_samples = int(np.prod(chunk.shape[:-1])) * chunk.n
     return chunk.wire_bytes * 8.0 / max(1, n_samples)
+
+
+def _budget_words(shape, threshold: float) -> int:
+    """Words of ``threshold`` x the pcm16 wire of int16 PCM of ``shape``."""
+    S, n = math.prod(shape[:-1]), shape[-1]
+    return int(threshold * S * n * 16) // 32
+
+
+def scratch_words(shape, threshold: float | None = 0.9) -> int:
+    """Int32 words of scratch that a pack of int16 PCM of ``shape`` (...,
+    n) may write: the padded words of :func:`pack_adaptive`'s budget at
+    ``threshold``, or with ``threshold`` None those of
+    :func:`pack_residual`'s worst case, in which the chosen order never
+    beats order 0's <= 16 bits a sample."""
+    if threshold is not None:
+        return _grid_pad(_budget_words(shape, threshold) + 1)
+    streams = math.prod(shape[:-1])
+    return _grid_pad(streams * -(-shape[-1] // BLOCK) * (BLOCK // 2) + 1)
 
 
 def pack_adaptive(x16: np.ndarray, scratch: np.ndarray,
@@ -272,8 +288,7 @@ def pack_adaptive(x16: np.ndarray, scratch: np.ndarray,
     shape = x16.shape
     n = shape[-1]
     streams = np.ascontiguousarray(x16.reshape(-1, n), np.int16)
-    S = streams.shape[0]
-    budget = int(threshold * S * n * 16) // 32
+    budget = _budget_words(streams.shape, threshold)
     widths, woffs, order, total, workers = _host_layout(streams)
     wpad = _grid_pad(total + 1)
     if total > budget or wpad > scratch.size:

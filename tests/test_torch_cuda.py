@@ -584,11 +584,25 @@ def test_mesh_of_the_card_four_times_over(dev):
         file_mesh(n_cards + 1)
 
 
+def _fleet_counts(records) -> dict:
+    """{counter: [n per batch]} of the fleet's counters in ``records``."""
+    from phaserotate_tpu_torch.utils.profiling import CountRecord
+
+    out: dict = {}
+    for r in records:
+        if isinstance(r, CountRecord) and r.name.startswith("fleet."):
+            out.setdefault(r.name, []).append(r.n)
+    return out
+
+
 def test_fleet_transports_equal_on_card(dev, tmp_path):
     """pcm16, packed and auto give the same results on the card, equal to
-    the per-file search; the batched apply equals the per-file apply."""
+    the per-file search and to the CPU's; every batch ships its wire from
+    a pinned slot of the staging ring (``fleet.pinned_bytes`` equal to
+    ``fleet.wire_bytes``); the batched apply equals the per-file apply."""
     from phaserotate_tpu_torch import fleet
     from phaserotate_tpu_torch.io import read_audio
+    from phaserotate_tpu_torch.utils.profiling import drain, recording
 
     paths = []
     for i in range(5):
@@ -598,13 +612,27 @@ def test_fleet_transports_equal_on_card(dev, tmp_path):
                   float_format=False)
         paths.append(p)
     _build.reset_launches()
-    base = fleet.analyze_paths(paths, transport="pcm16", batch=2)
-    assert _build.launches["rotate_peak_sweep"] == 3
-    for transport in ("packed", "auto"):
-        res = fleet.analyze_paths(paths, transport=transport, batch=2)
-        for p in paths:
-            assert res[p][0].angles_units == base[p][0].angles_units
-            assert np.array_equal(res[p][0].peak_min, base[p][0].peak_min)
+    drain()
+    with recording():
+        base = fleet.analyze_paths(paths, transport="pcm16", batch=2)
+        assert _build.launches["rotate_peak_sweep"] == 3
+        for transport in ("packed", "auto"):
+            res = fleet.analyze_paths(paths, transport=transport, batch=2)
+            for p in paths:
+                assert res[p][0].angles_units == base[p][0].angles_units
+                assert np.array_equal(res[p][0].peak_min,
+                                      base[p][0].peak_min)
+    counts = _fleet_counts(drain())
+    assert len(counts["fleet.wire_bytes"]) == 9
+    assert counts["fleet.pinned_bytes"] == counts["fleet.wire_bytes"]
+    assert fleet._RING.pinned and fleet._RING.pinned_bytes > 0
+    cpu = fleet.analyze_paths(paths, transport="pcm16", batch=2,
+                              device="cpu")
+    for p in paths:
+        assert cpu[p][0].angles_units == base[p][0].angles_units
+        assert np.array_equal(cpu[p][0].peak_zero, base[p][0].peak_zero)
+        assert np.abs(np.subtract(cpu[p][0].peak_min,
+                                  base[p][0].peak_min)).max() < 2e-5
     for p in paths:
         audio, rate, _ = read_audio(p)
         assert pr.find_min_peak_angle(audio, rate=rate).angles_units \
@@ -649,10 +677,13 @@ def test_pcm24_widen_bit_equal(dev, rows, channels, n, offset):
 
 def test_fleet_24bit_on_card_equals_cpu(dev, tmp_path, monkeypatch):
     """A 24-bit stereo fleet at 96 kHz (two buckets, blksiz 16384) on the
-    card: the pcm24 wire and the widen kernel; the same angles and input
-    peaks as on the CPU, and tables within 2e-5 (the card's convolution
-    rounds otherwise than the CPU's)."""
+    card: the pcm24 wire from pinned slots of the staging ring
+    (``fleet.pinned_bytes`` equal to ``fleet.wire_bytes`` in every batch)
+    and the widen kernel; the same angles and input peaks as on the CPU,
+    and tables within 2e-5 (the card's convolution rounds otherwise than
+    the CPU's)."""
     from phaserotate_tpu_torch import fleet
+    from phaserotate_tpu_torch.utils.profiling import drain, recording
 
     rng = np.random.default_rng(96)
     paths = []
@@ -676,11 +707,18 @@ def test_fleet_24bit_on_card_equals_cpu(dev, tmp_path, monkeypatch):
 
         monkeypatch.setattr(fleet, "select_min_peak_angles_batch", capture)
         _build.reset_launches()
-        res = fleet.analyze_paths(
-            paths, batch=2, device=where,
-            progress=lambda p, r, cached, _order=order: _order.append(p))
+        drain()
+        with recording():
+            res = fleet.analyze_paths(
+                paths, batch=2, device=where,
+                progress=lambda p, r, cached, _order=order: _order.append(p))
+        counts = _fleet_counts(drain())
+        assert len(counts["fleet.wire_bytes"]) == 2
         if where == "cuda":
             assert _build.launches["pcm24_widen"] == 2
+            assert counts["fleet.pinned_bytes"] == counts["fleet.wire_bytes"]
+        else:
+            assert counts["fleet.pinned_bytes"] == [0, 0]
         runs[where] = (res, tables, order)
     (card_res, card_tables, card_order), (cpu_res, cpu_tables, cpu_order) = (
         runs["cuda"], runs["cpu"])

@@ -9,6 +9,8 @@ boundary is crossed.
 """
 
 import os
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -17,9 +19,9 @@ import torch
 from phaserotate_tpu import fleet as j_fleet
 from phaserotate_tpu_torch import fleet as p_fleet
 from phaserotate_tpu_torch.core.sizes import offline_geometry
-from phaserotate_tpu_torch.io import (read_audio, write_flac, write_ogg,
-                                      write_wav)
-from phaserotate_tpu_torch.search import find_min_peak_angle
+from phaserotate_tpu_torch.io import (read_audio, read_audio_pcm16,
+                                      write_flac, write_ogg, write_wav)
+from phaserotate_tpu_torch.search import find_min_peak_angle, sweep_peaks_aux
 from phaserotate_tpu_torch.search.sweep import apply_angles
 
 torch.set_num_threads(1)
@@ -300,3 +302,149 @@ def test_fleet_needs_a_device(tmp_path, capsys):
     out = capsys.readouterr()
     assert out.out == "" and len(out.err.strip().splitlines()) == 1
     assert out.err.startswith("Error: ")
+
+
+def _mk_ring(tmp_path, seed=19):
+    """Stereo files of one bucket at blksiz 2048 (16 blocks of 2048): four
+    loud ones that nearly fill it and two quiet ones of about half its
+    length, whose pads a stale slot would fill with loud samples."""
+    rng = np.random.default_rng(seed)
+    paths = []
+    specs = [(32768, 0.7), (32000, 0.6), (31000, 0.8), (32500, 0.5),
+             (17000, 0.05), (18001, 0.04)]
+    for i, (n, amp) in enumerate(specs):
+        t = np.arange(n) / RATE
+        x = np.stack([amp * np.sin(2 * np.pi * (130 + 41 * i) * t + ph)
+                      + 0.01 * amp * rng.standard_normal(n)
+                      for ph in (0.0, 0.9)]).astype(np.float32)
+        p = str(tmp_path / f"r{i}.wav")
+        write_wav(p, x, RATE, bits=16, float_format=False)
+        paths.append(p)
+    return paths
+
+
+def _fresh_tables(paths, blksiz):
+    """{path: (table, rot0)} of ``sweep_peaks_aux`` on a fresh float32
+    array of each file's own int16 samples."""
+    geom = offline_geometry(RATE, blksiz)
+    out = {}
+    for p in paths:
+        x = read_audio_pcm16(p)[0].astype(np.float32) / 32768
+        table, rot0 = sweep_peaks_aux(x, geom, device="cpu")
+        out[p] = (table.numpy(), rot0.numpy())
+    return out
+
+
+def _run_tables(monkeypatch, paths, **kw):
+    """analyze_paths on the CPU -> (results, {path: (table, rot0)} as the
+    selection saw them)."""
+    got, order = [], []
+    select = p_fleet.select_min_peak_angles_batch
+
+    def capture(tables, *a, **k):
+        got.extend(zip(np.array(tables), np.array(k["rot0"])))
+        return select(tables, *a, **k)
+
+    monkeypatch.setattr(p_fleet, "select_min_peak_angles_batch", capture)
+    res = analyze_paths(paths, progress=lambda p, r, cached: order.append(p),
+                        **kw)
+    monkeypatch.setattr(p_fleet, "select_min_peak_angles_batch", select)
+    return res, dict(zip(order, got))
+
+
+def _assert_fresh(res, got, want, paths):
+    for p in paths:
+        assert np.array_equal(got[p][0], want[p][0]), p
+        assert np.array_equal(got[p][1], want[p][1]), p
+        assert np.array_equal(res[p][0].peak_zero, want[p][0][:, 0]), p
+
+
+@pytest.mark.parametrize("transport", ["pcm16", "packed", "auto"])
+def test_fleet_ring_leaves_no_stale_samples_in_a_pad(tmp_path, monkeypatch,
+                                                     transport):
+    """The staging ring reuses its two slots.  Batches of two (loud,
+    loud, quiet short pair) put the short files in the rows that the
+    first loud pair filled; a second call puts them where the second
+    loud pair was.  Every table equals ``sweep_peaks_aux`` on a fresh
+    array of the file's samples, bit for bit, and the first call's
+    results still do after the second call reused the slots."""
+    paths = _mk_ring(tmp_path)
+    short = paths[4:]
+    want = _fresh_tables(paths, 2048)
+    first, got = _run_tables(monkeypatch, paths, batch=2, blksiz=2048,
+                             transport=transport)
+    second, got2 = _run_tables(monkeypatch, short, batch=2, blksiz=2048,
+                               transport=transport)
+    _assert_fresh(first, got, want, paths)
+    _assert_fresh(second, got2, want, short)
+    # one file a batch: the short ones land in row 0 of either slot
+    third, got3 = _run_tables(monkeypatch, paths[:2] + short, batch=1,
+                              blksiz=2048, transport=transport)
+    _assert_fresh(third, got3, want, paths[:2] + short)
+
+
+@pytest.mark.parametrize("transport", ["pcm16", "packed", "auto"])
+def test_fleet_batch_over_the_ring_share_goes_pageable(tmp_path, monkeypatch,
+                                                       transport):
+    """With the ring's cap lowered so that a slot holds one file of the
+    bucket and not two, the two-file batch is staged in a fresh array
+    while the one-file batch takes a slot; the tables equal the fresh
+    per-file sweeps all the same."""
+    paths = _mk_ring(tmp_path)
+    key = p_fleet._bucket_key(RATE, 2, 32768, 16, 2048)
+    one, two = (p_fleet._pow2(p_fleet._slot_bytes(
+        p_fleet._wire_layout(key, k, transport))) for k in (1, 2))
+    assert two > one
+    monkeypatch.setattr(p_fleet, "_ring_cap_bytes", lambda: 2 * one)
+    taken = []
+    take = p_fleet._StagingRing.take
+    monkeypatch.setattr(p_fleet._StagingRing, "take",
+                        lambda ring: taken.append(1) or take(ring))
+    res, got = _run_tables(monkeypatch, paths[:2] + paths[4:5], batch=2,
+                           blksiz=2048, transport=transport)
+    assert len(taken) == 1
+    _assert_fresh(res, got, _fresh_tables(paths, 2048),
+                  paths[:2] + paths[4:5])
+
+
+def test_fleet_calls_in_threads_share_the_ring(tmp_path, monkeypatch):
+    """Four ``analyze_paths`` calls at once, in threads, with a short
+    switch interval: one holds the ring, the others stage pageable, and
+    every table equals the fresh per-file sweep, bit for bit."""
+    paths = _mk_ring(tmp_path)
+    want = _fresh_tables(paths, 2048)
+    select = p_fleet.select_min_peak_angles_batch
+    got, errors = {}, []
+    local = threading.local()
+
+    def capture(tables, *a, **k):
+        local.rows.extend(zip(np.array(tables), np.array(k["rot0"])))
+        return select(tables, *a, **k)
+
+    def call(i):
+        local.rows, order = [], []
+        try:
+            res = analyze_paths(
+                paths[i % 2 :], batch=1 + i % 2, blksiz=2048,
+                transport=("pcm16", "auto")[i % 2],
+                progress=lambda p, r, cached: order.append(p))
+            got[i] = (res, dict(zip(order, local.rows)))
+        except Exception as e:  # reported by the assertion below
+            errors.append(e)
+
+    monkeypatch.setattr(p_fleet, "select_min_peak_angles_batch", capture)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert sorted(got) == [0, 1, 2, 3]
+    for i, (res, tables) in got.items():
+        _assert_fresh(res, tables, want, paths[i % 2 :])
+    assert not p_fleet._RING.lock.locked()

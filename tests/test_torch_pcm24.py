@@ -469,3 +469,81 @@ def test_benchmark_readers_read_the_24bit_records(monkeypatch):
     monkeypatch.setattr(program, "_drain", lambda: [])
     for read in readers.values():
         assert read(Trace(window=(w0, w0 + 1000 * ms))) is None
+
+
+def _ring_catalogue(tmp_path):
+    """Stereo 96 kHz 24-bit files of one bucket (4 blocks of 16384): four
+    loud ones that nearly fill it and two quiet ones of about half its
+    length, whose pads a stale slot would fill with loud samples."""
+    rng = np.random.default_rng(20)
+    paths = []
+    for i, (n, peak) in enumerate(((65536, FULL - 1), (64000, FULL // 2),
+                                   (63001, FULL - 9), (65000, FULL // 3),
+                                   (40000, FULL // 64), (41001, 3000))):
+        paths.append(_write24(tmp_path / f"r{i}.wav",
+                              _music(rng, 2, n, 96000, peak), 96000))
+    return paths
+
+
+def _fresh_tables(paths):
+    """{path: (table, rot0)} of ``sweep_peaks_aux`` on a fresh float32
+    array of each file's samples."""
+    out = {}
+    for p in paths:
+        audio, rate, _ = read_audio(p)
+        table, rot0 = sweep_peaks_aux(audio, offline_geometry(rate, 0),
+                                      device="cpu")
+        out[p] = (table.numpy(), rot0.numpy())
+    return out
+
+
+def _run_tables(monkeypatch, paths, **kw):
+    got = _capture(monkeypatch)
+    order = []
+    fleet.analyze_paths(paths, device="cpu",
+                        progress=lambda p, r, cached: order.append(p), **kw)
+    monkeypatch.undo()
+    return {p: (t, r) for p, t, r in zip(order, got["tables"], got["rot0"])}
+
+
+def test_ring_leaves_no_stale_samples_in_a_24bit_pad(tmp_path, monkeypatch):
+    """24-bit batches through the reused slots of the staging ring: the
+    quiet short pair lands where loud pairs were, later in one call and in
+    the next one; every table equals ``sweep_peaks_aux`` on a fresh array
+    of the file's samples, bit for bit."""
+    paths = _ring_catalogue(tmp_path)
+    short = paths[4:]
+    want = _fresh_tables(paths)
+    runs = [(paths, 2), (short, 2), (paths[:2] + short, 1)]
+    for run, batch in runs:
+        got = _run_tables(monkeypatch, run, batch=batch)
+        assert sorted(got) == sorted(run)
+        for p in run:
+            assert np.array_equal(got[p][0], want[p][0]), p
+            assert np.array_equal(got[p][1], want[p][1]), p
+
+
+def test_24bit_batch_over_the_ring_share_goes_pageable(tmp_path,
+                                                       monkeypatch):
+    """With the ring's cap lowered so that a slot holds one 24-bit file
+    of the bucket and not two, the two-file batch is staged in a fresh
+    array and the one-file batch in a slot; the tables equal the fresh
+    per-file sweeps all the same."""
+    paths = _ring_catalogue(tmp_path)
+    run = paths[:2] + paths[4:5]
+    key = fleet._bucket_key(96000, 2, 65536, 24, 16384)
+    one = fleet._pow2(fleet._slot_bytes(fleet._wire_layout(key, 1, "auto")))
+    want = _fresh_tables(run)
+    taken = []
+    take = fleet._StagingRing.take
+    monkeypatch.setattr(fleet, "_ring_cap_bytes", lambda: 2 * one)
+    monkeypatch.setattr(fleet._StagingRing, "take",
+                        lambda ring: taken.append(1) or take(ring))
+    got = _capture(monkeypatch)
+    order = []
+    fleet.analyze_paths(run, batch=2, device="cpu",
+                        progress=lambda p, r, cached: order.append(p))
+    assert len(taken) == 1 and sorted(order) == sorted(run)
+    for p, table, rot0 in zip(order, got["tables"], got["rot0"]):
+        assert np.array_equal(table, want[p][0]), p
+        assert np.array_equal(rot0, want[p][1]), p
