@@ -36,11 +36,11 @@ then, on the first CUDA device:
    launch); ``fleet.analyze_paths`` per transport
    (pcm16, packed, auto: equal tables and angles, ``auto`` shipping both
    kinds of batch; files/s, wire bytes and peak device memory printed);
-   eight 24-bit copies, every byte of their wire from the pinned staging
-   ring, then one ``fleet ring`` line: the host-to-device rate from a
-   pinned slot at the 96 kHz catalogue's longest batch (8 x 2 x 2^26
-   frames of pcm24) beside the pageable rate of the same payload, the
-   pinned share and the ring's pinned bytes;
+   eight 24-bit copies, every batch staged in a pinned slot of the
+   process's staging ring, then one ``fleet ring`` line: the
+   host-to-device rate from a pinned slot at the 96 kHz catalogue's
+   longest batch (8 x 2 x 2^26 frames of pcm24) beside the pageable rate
+   of the same payload, and the ring's slot size;
    six files against ``find_min_peak_angle`` and ``_apply_one``; one batch
    step by step (decode, pack, copy, unpack, sweep, selection), after
    the counts are read and with ``hilbert_small`` and the sweep kernel
@@ -712,16 +712,15 @@ def staging_breakdown(paths, geom, dev, card: str, label: str) -> None:
           f"(plain sweep {t_plain:.6f} s)")
 
 
-def ring_copy_rate(dev, card: str, times: dict, pinned_share: float) -> None:
+def ring_copy_rate(dev, card: str, times: dict) -> None:
     """The fleet's host-to-device rate from a pinned slot of its staging
     ring, at the 96 kHz catalogue's longest batch (8 x 2 x 2^26 frames of
     pcm24, 3.2 GB), copied as ``fleet.analyze_paths`` copies it (one
     non-blocking copy and an event), beside the pageable rate of the same
-    payload (``torch.as_tensor`` of a numpy array, the path of a batch
-    over the ring's share); the best of three each, and the time the
-    dispatch thread is held by the ring's copy.  ``pinned_share`` is the
-    24-bit run's ``fleet.pinned_bytes`` over its ``fleet.wire_bytes``.
-    The pinned allocator's bytes (active and cached) follow the ring's."""
+    payload (``torch.as_tensor`` of a numpy array, what a call's own ring
+    in plain host memory costs); the best of three each, and the time the
+    dispatch thread is held by the ring's copy.  The pinned allocator's
+    bytes (active and cached) follow the ring's."""
     import torch
 
     from phaserotate_tpu_torch import fleet as pfleet
@@ -732,8 +731,7 @@ def ring_copy_rate(dev, card: str, times: dict, pinned_share: float) -> None:
     ring = pfleet._RING
     with ring.lock, phase("fleet_ring_copy_3_2_GB", card, times):
         t0 = time.perf_counter()
-        ring.reserve(pfleet._slot_bytes(pfleet._wire_layout(key, 8, "auto")),
-                     pinned=True)
+        ring.reserve(pfleet._slot_bytes(key, 8, "auto"), pinned=True)
         reserve_s = time.perf_counter() - t0
         slot = ring.take()
         buf = slot.view(0, shape, np.uint8)
@@ -750,7 +748,7 @@ def ring_copy_rate(dev, card: str, times: dict, pinned_share: float) -> None:
                 start.record()
                 t0 = time.perf_counter()
                 if kind == "pinned":
-                    got = slot.send(buf, dev)
+                    got = slot.send([buf], dev)[0]
                     held.append(time.perf_counter() - t0)
                 else:
                     got = torch.as_tensor(page, device=dev)
@@ -769,10 +767,10 @@ def ring_copy_rate(dev, card: str, times: dict, pinned_share: float) -> None:
     print(f"fleet ring: host-to-device {max(rates['pinned'])!r} GB/s from a "
           f"pinned slot ({min(held) * 1e3!r} ms on the dispatch thread) vs "
           f"{max(rates['pageable'])!r} GB/s pageable, {nbytes} bytes (8 x 2 "
-          f"x 2^26 frames of pcm24); pinned share of the 24-bit run's wire "
-          f"{pinned_share!r}; ring pinned bytes {ring.pinned_bytes} "
-          f"(reserved in {reserve_s!r} s), the pinned allocator holding "
-          f"{held_pinned} [{card}]")
+          f"x 2^26 frames of pcm24); ring pinned {ring.pinned}, "
+          f"{len(ring.slots)} slots of {ring.nbytes} bytes (reserved in "
+          f"{reserve_s!r} s), the pinned allocator holding {held_pinned} "
+          f"[{card}]")
 
 
 def drive_catalogue(tmp, dev, card, times, x4, fleet, stems, stem_degs,
@@ -942,8 +940,16 @@ def drive_catalogue(tmp, dev, card, times, x4, fleet, stems, stem_degs,
         deep_tables.extend(np.array(row) for row in t)
         return select(t, *a, **kw)
 
+    taken = []
+    take = pfleet._StagingRing.take
+
+    def take_logged(ring):
+        taken.append((ring, ring.pinned))
+        return take(ring)
+
     drain()
     pfleet.select_min_peak_angles_batch = capture
+    pfleet._StagingRing.take = take_logged
     try:
         with recording(), phase("fleet_analyze_pcm24_8_files", card, times):
             pfleet.analyze_paths(
@@ -951,19 +957,23 @@ def drive_catalogue(tmp, dev, card, times, x4, fleet, stems, stem_degs,
                 progress=lambda p, r, cached: deep_order.append(p))
     finally:
         pfleet.select_min_peak_angles_batch = select
+        pfleet._StagingRing.take = take
     records = drain()
     kinds = [r.attrs["transport"] for r in records if r.name == "fleet.pack"]
     check(kinds == ["pcm24"], f"the 24-bit copies shipped {kinds}")
-    shipped = {name: sum(r.n for r in records if isinstance(r, CountRecord)
-                         and r.name == name)
-               for name in ("fleet.wire_bytes", "fleet.pinned_bytes")}
-    check(shipped["fleet.pinned_bytes"] == shipped["fleet.wire_bytes"] > 0,
-          f"the 24-bit copies did not all ship from the pinned ring: "
-          f"{shipped}")
-    ring_copy_rate(dev, card, times, shipped["fleet.pinned_bytes"]
-                   / shipped["fleet.wire_bytes"])
-    n_pad = pfleet._bucket_key(RATE, 2, max(x.shape[1] for x in deep_x),
-                               24, geom.parsiz)[2]
+    wire = sum(r.n for r in records if isinstance(r, CountRecord)
+               and r.name == "fleet.wire_bytes")
+    key = pfleet._bucket_key(RATE, 2, max(x.shape[1] for x in deep_x),
+                             24, geom.parsiz)
+    check(taken == [(pfleet._RING, True)] * len(kinds)
+          and wire <= pfleet._slot_bytes(key, len(deep), "auto")
+          <= pfleet._RING.nbytes,
+          f"the 24-bit copies did not all ship from a pinned slot of the "
+          f"process's ring: {len(taken)} slots taken for {len(kinds)} "
+          f"batches, pinned {[pinned for _, pinned in taken]}, {wire} wire "
+          f"bytes, slots of {pfleet._RING.nbytes} bytes")
+    ring_copy_rate(dev, card, times)
+    n_pad = key[2]
     x_pad = np.zeros((len(deep), 2, n_pad), np.float32)
     for i, x in enumerate(deep_x):
         x_pad[i, :, : x.shape[1]] = x

@@ -26,17 +26,23 @@ it is (the ``pcm24`` wire), widened on the device
 8 bits, so ``pcm16`` and ``packed`` refuse such a file.  Every other
 source (24-bit FLAC or AIFF among them) takes the int16 path.
 
-The staging thread decodes each batch into one of two reused host slots
-(``_StagingRing``, kept for the life of the process): pinned where the
-sweeps run on a card, so the wire goes over in one non-blocking copy
-from the slot, and the dispatch thread only enqueues it.  A CUDA event
-after the copy tells the staging thread when it may write that slot
-again.  CUDA launches are asynchronous, so the decode of batch k+1
-overlaps the copy and device pass of batch k, across a bucket's edge
-too; a batch's only synchronisation is the readback of its tables.  A
-batch larger than a slot's share of the ring's cap (a quarter of the
-host's memory) is staged in a fresh pageable array and copied as it was
-before the ring.
+Every batch is staged the same way: the staging thread decodes it into
+one of two reused host slots of a ``_StagingRing`` and the dispatch
+thread copies the slot's wire to the device in one non-blocking copy,
+then records a CUDA event that tells the staging thread when it may
+write that slot again.  The process keeps one ring (``_RING``), pinned
+where the sweeps run on a card and used by one call at a time; each of
+its slots holds at most half of a quarter of the host's memory, so the
+batch plan splits a batch over that share into the fewest consecutive
+batches that fit, the files in their order.  A call that finds the ring
+taken, or whose plan still holds a batch over the share (one file alone
+over it, or a host that does not say its memory size), stages through a
+ring of its own in plain host memory, dropped when it returns.  CUDA
+launches are asynchronous, so the decode of batch k+1 overlaps the copy
+and device pass of batch k, across a bucket's edge too; a batch's only
+synchronisation is the readback of its tables.  ``apply_paths`` shares
+the batch plan and the run-ahead loop, and stages its float32 batches
+in fresh host arrays.
 
 Files bucket by (rate, channels, padded length, depth read); padding with
 silence is EXACT for the peak table: beyond the flush block the Hilbert
@@ -53,10 +59,8 @@ Tracing (utils/profiling): the staging thread (``fleet-stage``) records
 per batch (attribute ``transport``: packed, pcm16 or pcm24); the dispatch
 loop records ``fleet.stage_wait`` (waiting for the staging thread),
 ``fleet.dispatch`` (transfer, unpack or widen, sweep enqueue) and
-``fleet.readback``; each batch counts ``fleet.wire_bytes``,
-``fleet.pinned_bytes`` (the wire bytes copied from a pinned slot: 0 on
-the CPU and for a batch staged pageable) and ``fleet.pcm16_bytes`` (not
-for a 24-bit batch), and
+``fleet.readback``; each batch counts ``fleet.wire_bytes`` and
+``fleet.pcm16_bytes`` (not for a 24-bit batch), and
 ``search.sweep_peaks_aux_pcm24`` records ``pcm24.widen``.  They record
 only under a ``torch.profiler`` session or a ``recording()`` scope;
 ``PHASEROTATE_TPU_PROFILE=<dir>`` writes a profile of the whole command
@@ -67,11 +71,11 @@ kernels.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import os
 import sys
 import threading
 from concurrent.futures import ThreadPoolExecutor
+from operator import itemgetter
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -135,31 +139,27 @@ def _ring_cap_bytes() -> int:
         return 0
 
 
-def _wire_layout(key, files: int, transport: str) -> Tuple[int, int, int]:
-    """(pcm bytes, scratch words, metadata bytes) of a batch's slot.
+def _wire_layout(key, files: int, transport: str) -> Tuple[int, int]:
+    """(pcm bytes, scratch words) of a batch's slot.
 
     A 24-bit batch is its (files, n_pad, channels, 3) bytes alone.  A
-    16-bit batch is its int16 samples, then the packer's scratch, then
-    room for the packed wire's per-block widths and offsets and
-    per-stream orders, so a packed batch ships as one range of the slot.
-    pcm16 lays out the scratch of auto, whose batches it warms up."""
-    from .search.packed import BLOCK, scratch_words
+    16-bit batch is its int16 samples, then the packer's scratch, which
+    holds the whole packed wire, so a packed batch ships as one range of
+    the slot.  pcm16 lays out the scratch of auto, whose batches it warms
+    up."""
+    from .search.packed import scratch_words
 
     _rate, channels, n_pad, bits = key
     if bits == 24:
-        return files * n_pad * channels * 3, 0, 0
-    shape = (files, channels, n_pad)
-    streams = files * channels
-    meta = (2 * _aligned(streams * -(-n_pad // BLOCK) * 4)
-            + _aligned(streams * 4))
+        return files * n_pad * channels * 3, 0
     return (files * channels * n_pad * 2,
-            scratch_words(shape, None if transport == "packed" else 0.9),
-            meta)
+            scratch_words((files, channels, n_pad),
+                          None if transport == "packed" else 0.9))
 
 
-def _slot_bytes(layout: Tuple[int, int, int]) -> int:
-    pcm, words, meta = layout
-    return _aligned(pcm) + _aligned(words * 4) + meta
+def _slot_bytes(key, files: int, transport: str) -> int:
+    pcm, words = _wire_layout(key, files, transport)
+    return _aligned(pcm) + _aligned(words * 4)
 
 
 class _Slot:
@@ -182,46 +182,30 @@ class _Slot:
         nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
         return self.array[offset : offset + nbytes].view(dtype).reshape(shape)
 
-    def offset(self, a: np.ndarray) -> int:
-        """The byte offset in the slot of ``a``, a contiguous view of it."""
-        return a.ctypes.data - self.array.ctypes.data
-
-    def send(self, obj, device):
-        """``obj`` (an array, or a PackedChunk of arrays, all inside the
-        slot) on ``device``: one non-blocking copy of the byte range that
-        holds them, then an event the staging thread waits on before it
-        writes the slot again."""
-        from .search.packed import PackedChunk
-
-        fields = ("words", "widths", "woffs", "order")
-        arrays = ([getattr(obj, f) for f in fields]
-                  if isinstance(obj, PackedChunk) else [obj])
-        offs = [self.offset(a) for a in arrays]
+    def send(self, arrays, device) -> list:
+        """``arrays`` (contiguous views of the slot) on ``device``: one
+        non-blocking copy of the byte range that holds them, then an event
+        the staging thread waits on before it writes the slot again."""
+        offs = [a.ctypes.data - self.array.ctypes.data for a in arrays]
         lo = min(offs)
         hi = max(o + a.nbytes for o, a in zip(offs, arrays))
         wire = self.host[lo:hi].to(device, non_blocking=True)
         self.copied = torch.cuda.Event()
         self.copied.record(torch.cuda.current_stream(device))
-        moved = [wire[o - lo : o - lo + a.nbytes]
-                 .view(_TORCH_DTYPE[a.dtype]).view(a.shape)
-                 for o, a in zip(offs, arrays)]
-        if isinstance(obj, PackedChunk):
-            return dataclasses.replace(obj, **dict(zip(fields, moved)))
-        return moved[0]
+        return [wire[o - lo : o - lo + a.nbytes]
+                .view(_TORCH_DTYPE[a.dtype]).view(a.shape)
+                for o, a in zip(offs, arrays)]
 
 
 class _StagingRing:
     """Two host buffers the staging thread writes each batch's wire into,
-    in turn, for the life of the process.
+    in turn.
 
     Pinned where the sweeps run on a card, so the copy to it is a
-    non-blocking DMA; plain host memory on the CPU.  Both slots grow
-    together, to the largest batch of an ``analyze_paths`` call, at the
-    call's start while nothing is copied from them, and never shrink.
-    Each slot holds at most half of :func:`_ring_cap_bytes`; a batch
-    larger than that is staged in a fresh pageable array instead.  One
-    call uses the ring at a time (``lock``); a concurrent call stages
-    pageable."""
+    non-blocking DMA; plain host memory on the CPU and in a call's own
+    ring.  Both slots grow together, to the largest batch of a call, at
+    the call's start while nothing is copied from them, and never shrink.
+    The process's ring, ``_RING``, serves one call at a time (``lock``)."""
 
     def __init__(self) -> None:
         self.lock = threading.Lock()
@@ -229,9 +213,6 @@ class _StagingRing:
         self.nbytes = 0          # each slot's size
         self.pinned = False
         self._next = 0
-
-    def fits(self, nbytes: int) -> bool:
-        return _pow2(nbytes) <= _ring_cap_bytes() // len(self.slots)
 
     def reserve(self, nbytes: int, pinned: bool) -> None:
         """Grow every slot to hold ``nbytes`` (rounded up to a power of
@@ -260,16 +241,68 @@ class _StagingRing:
         slot.wait()
         return slot
 
-    @property
-    def pinned_bytes(self) -> int:
-        return self.nbytes * len(self.slots) if self.pinned else 0
-
 
 def _pow2(n: int) -> int:
     return 1 << max(0, n - 1).bit_length()
 
 
 _RING = _StagingRing()
+
+
+def _plan(paths: Sequence[str], blksiz: int, batch: int, keep=None,
+          fits=None) -> List[tuple]:
+    """A call's batches, bucket after bucket: (names, key, geometry).
+
+    Pass 1 probes headers only — audio decodes lazily per batch, so
+    fleet memory stays O(batch), not O(fleet) — and buckets the files by
+    ``_bucket_key``; ``keep(path, rate, bits, geometry)`` False leaves a
+    file out.  Where ``fits(key, files)`` says a batch's slot is over the
+    ring's share, the batch is split into the fewest consecutive batches
+    that fit; one whose single file does not fit stays whole."""
+    buckets: Dict[tuple, tuple] = {}
+    for p in paths:
+        rate, channels, n, bits = _probe(p)
+        geom = offline_geometry(rate, blksiz)
+        if keep is None or keep(p, rate, bits, geom):
+            key = _bucket_key(rate, channels, n, bits, geom.parsiz)
+            buckets.setdefault(key, (geom, []))[1].append(p)
+    plan = []
+    for key, (geom, group) in buckets.items():
+        for i in range(0, len(group), batch):
+            names = group[i : i + batch]
+            step = len(names)
+            if fits is not None:
+                step = next((k for k in range(step, 0, -1) if fits(key, k)),
+                            step)
+            plan += [(names[j : j + step], key, geom)
+                     for j in range(0, len(names), step)]
+    return plan
+
+
+def _run_ahead(plan: List[tuple], stage, dispatch, finish) -> None:
+    """Run the batches of ``plan`` one ahead: the staging thread stages
+    batch k+1 (``stage(*batch)``) while batch k is dispatched
+    (``dispatch(batch, staged)`` enqueues it and returns its handles),
+    and only then is batch k-1 finished (``finish(batch, handles)``, its
+    only synchronisation), so the device always has the next batch
+    queued; a bucket's edge is no different."""
+    pool = ThreadPoolExecutor(1, thread_name_prefix="fleet-stage")
+    try:
+        fut = pool.submit(stage, *plan[0]) if plan else None
+        pending = None
+        for k, item in enumerate(plan):
+            with span("fleet.stage_wait"):
+                staged = fut.result()
+            if k + 1 < len(plan):
+                fut = pool.submit(stage, *plan[k + 1])
+            handles = dispatch(item, staged)
+            if pending is not None:
+                finish(*pending)
+            pending = (item, handles)
+        if pending is not None:
+            finish(*pending)
+    finally:
+        pool.shutdown()
 
 
 def analyze_paths(
@@ -288,7 +321,8 @@ def analyze_paths(
     Files are bucketed by geometry, decoded to int16 PCM on a background
     thread into the staging ring (overlapped with the copy and device
     sweep of the previous batch), zero-padded to the bucket length, and
-    swept ``batch`` files per device dispatch.
+    swept ``batch`` files per device dispatch (fewer where a batch would
+    not fit a slot of the ring).
 
     ``transport`` picks the host->device wire format: "pcm16" ships the
     raw 16-bit bitcast; "packed" ships the lossless residual transport
@@ -320,118 +354,104 @@ def analyze_paths(
     ckpt = None
     results: Dict[str, Tuple[SearchResult, int]] = {}
 
-    # pass 1: header probes only — audio decodes lazily per batch, so
-    # fleet memory stays O(batch), not O(fleet)
-    buckets: Dict[tuple, List[str]] = {}
-    meta: Dict[str, tuple] = {}
-    for p in paths:
-        rate, channels, n, bits = _probe(p)
+    def keep(p: str, rate: int, bits: int, geom) -> bool:
+        """False for a file whose sweep the checkpoint holds: its
+        selection is made here."""
+        nonlocal ckpt
         if bits == 24 and transport != "auto":
             raise ValueError(f"{p}: 24-bit PCM; transport {transport!r} "
                              "carries 16 bits (use 'auto')")
-        geom = offline_geometry(rate, blksiz)
         if ckpt is None and checkpoint:
             ckpt = SweepCheckpoint(checkpoint, blksiz=geom.blksiz)
-        key = _bucket_key(rate, channels, n, bits, geom.parsiz)
-        meta[p] = (rate, geom)
-        if ckpt is not None and p in ckpt:
-            table, rot0 = ckpt.get(p)
-            results[p] = (select_min_peak_angles_batch(
-                table[None], stride=stride, link_channels=link_channels,
-                rot0=rot0[None])[0], rate)
-            if progress:
-                progress(p, results[p][0], cached=True)
-            continue
-        buckets.setdefault(key, []).append(p)
+        if ckpt is None or p not in ckpt:
+            return True
+        table, rot0 = ckpt.get(p)
+        results[p] = (select_min_peak_angles_batch(
+            table[None], stride=stride, link_channels=link_channels,
+            rot0=rot0[None])[0], rate)
+        if progress:
+            progress(p, results[p][0], cached=True)
+        return False
 
-    # every batch of the call, bucket after bucket: the staging thread
-    # runs one batch ahead across a bucket's edge too
-    batches = [(group[i : i + batch], key)
-               for key, group in buckets.items()
-               for i in range(0, len(group), batch)]
-    pool = ThreadPoolExecutor(1, thread_name_prefix="fleet-stage")
-    ring = _RING if batches and _RING.lock.acquire(blocking=False) else None
-    pinned = ring is not None and device.type == "cuda"
+    share = _ring_cap_bytes() // len(_RING.slots)
+    plan = _plan(paths, blksiz, batch, keep, lambda key, files: _pow2(
+        _slot_bytes(key, files, transport)) <= share)
+    if not plan:
+        return results
+    largest = max(_slot_bytes(key, len(names), transport)
+                  for names, key, _ in plan)
+    # the process's ring where it is free and holds every batch; else a
+    # ring of the call's own, in plain host memory
+    shared = (_pow2(largest) <= share
+              and _RING.lock.acquire(blocking=False))
+    ring = _RING if shared else _StagingRing()
 
-    def stage(names: List[str], key, on_ring: bool):
-        """Decode a batch into the ring's next slot (a fresh pageable
-        array where the batch does not fit one); returns the wire to
-        dispatch, an int16 array (pcm16), a PackedChunk, or at 24 bits a
-        (files, n_pad, channels, 3) uint8 array of the files' samples
-        (pcm24), and the slot that holds it (None).  Each row's tail past
-        the file is zeroed, so a reused slot never leaks an earlier batch
-        into the pad.  Runs on the staging thread (numpy and the host
-        library only; no torch call but the slot's event wait and the
-        spans' ``record_function`` under a profiler session), so the pack
-        overlaps the previous batch's copy and device pass."""
+    def pcm16_into(p: str, rows: np.ndarray) -> int:
+        """The file's int16 samples into ``rows`` (frames, channels);
+        returns the frames written."""
+        audio = read_audio_pcm16(p)[0]
+        frames = min(audio.shape[1], len(rows))
+        rows[:frames] = audio[:, :frames].T
+        return frames
+
+    def stage(names: List[str], key, _geom):
+        """Decode a batch into the ring's next slot; returns the slot,
+        the wire's arrays in it (the int16 samples for pcm16, a
+        PackedChunk's arrays, or at 24 bits the (files, n_pad, channels,
+        3) bytes of the files' samples for pcm24), the function that
+        makes the wire of those arrays or of their copies, and the sweep
+        that reads that wire.  Each row's tail past the file is zeroed,
+        so a reused slot never leaks an earlier batch into the pad.  Runs
+        on the staging thread (numpy and the host library only; no torch
+        call but the slot's event wait and the spans' ``record_function``
+        under a profiler session), so the pack overlaps the previous
+        batch's copy and device pass."""
         with span("fleet.stage"):
             _rate, channels, n_pad, bits = key
-            layout = _wire_layout(key, len(names), transport)
-            slot = ring.take() if on_ring else None
+            pcm, words = _wire_layout(key, len(names), transport)
+            slot = ring.take()
             if bits == 24:
-                shape = (len(names), n_pad, channels, 3)
-                buf = (slot.view(0, shape, np.uint8) if slot is not None
-                       else np.empty(shape, np.uint8))
-                for i, p in enumerate(names):
-                    with span("fleet.decode"):
-                        frames = read_pcm24_into(p, buf[i])
-                    buf[i, frames:] = 0
-                # nothing to pack: the span records the wire shipped
-                with span("fleet.pack", transport="pcm24"):
-                    pass
-                count("fleet.wire_bytes", buf.nbytes)
-                count("fleet.pinned_bytes", buf.nbytes if pinned and on_ring
-                      else 0)
-                return buf, slot
-            shape = (len(names), channels, n_pad)
-            buf = (slot.view(0, shape, np.int16) if slot is not None
-                   else np.empty(shape, np.int16))
+                buf = slot.view(0, (len(names), n_pad, channels, 3),
+                                np.uint8)
+                rows, read = buf, read_pcm24_into
+            else:
+                buf = slot.view(0, (len(names), channels, n_pad), np.int16)
+                rows, read = buf.transpose(0, 2, 1), pcm16_into
             for i, p in enumerate(names):
                 with span("fleet.decode"):
-                    audio = read_audio_pcm16(p)[0]
-                m = min(audio.shape[1], n_pad)
-                buf[i, :, :m] = audio[:, :n_pad]
-                buf[i, :, m:] = 0
+                    frames = read(p, rows[i])
+                rows[i, frames:] = 0
             with span("fleet.pack") as packing:
-                obj = buf
-                if transport != "pcm16":
-                    words = layout[1]
-                    scratch = (slot.view(_aligned(buf.nbytes), (words,),
-                                         np.int32)
-                               if slot is not None
-                               else np.empty(words, np.int32))
-                    if transport == "packed":
-                        obj = pack_residual(buf, scratch)
-                    else:
-                        obj = pack_adaptive(buf, scratch) or buf
-                packed = obj is not buf
-                packing.set(transport="packed" if packed else "pcm16")
-            if packed and slot is not None:
-                obj = _metadata_into(slot, obj)
-            wire = obj.wire_bytes if packed else buf.nbytes
-            count("fleet.wire_bytes", wire)
-            count("fleet.pinned_bytes", wire if pinned and on_ring else 0)
-            count("fleet.pcm16_bytes", buf.nbytes)
-            return obj, slot
-
-    def dispatch(wire, slot: Optional[_Slot], geom):
-        from .search.packed import PackedChunk
-
-        with span("fleet.dispatch"):
-            if isinstance(wire, PackedChunk):
+                pk = None
+                if bits == 16 and transport != "pcm16":
+                    scratch = slot.view(_aligned(pcm), (words,), np.int32)
+                    pk = (pack_residual(buf, scratch) if transport == "packed"
+                          else pack_adaptive(buf, scratch))
+                packing.set(transport="pcm24" if bits == 24
+                            else "pcm16" if pk is None else "packed")
+            if pk is not None:
+                arrays, wire_of = pk.arrays(), pk.with_arrays
                 sweep = sweep_peaks_aux_packed
-            elif wire.dtype == np.uint8:
-                sweep = sweep_peaks_aux_pcm24
             else:
-                sweep = sweep_peaks_aux_pcm16
-            if pinned and slot is not None:
-                wire = slot.send(wire, device)
-            return sweep(wire, geom, device=device)
+                arrays, wire_of = (buf,), itemgetter(0)
+                sweep = (sweep_peaks_aux_pcm24 if bits == 24
+                         else sweep_peaks_aux_pcm16)
+            count("fleet.wire_bytes", sum(a.nbytes for a in arrays))
+            if bits == 16:
+                count("fleet.pcm16_bytes", buf.nbytes)
+            return slot, arrays, wire_of, sweep
 
-    def finish(pending) -> None:
+    def dispatch(item, staged):
+        slot, arrays, wire_of, sweep = staged
+        with span("fleet.dispatch"):
+            if device.type == "cuda":
+                arrays = slot.send(arrays, device)
+            return sweep(wire_of(arrays), item[2], device=device)
+
+    def finish(item, handles) -> None:
         """Read one in-flight sweep back (the batch's only
         synchronisation) and emit its selections."""
-        names, rate, handles = pending
+        names, key, _geom = item
         with span("fleet.readback"):
             tables = handles[0].cpu().numpy()
             rot0 = handles[1].cpu().numpy()
@@ -439,58 +459,19 @@ def analyze_paths(
             tables, stride=stride, link_channels=link_channels,
             rot0=rot0)
         for i, p in enumerate(names):
-            results[p] = (sel[i], rate)
+            results[p] = (sel[i], key[0])
             if ckpt is not None:
                 ckpt.put(p, tables[i], rot0[i])
             if progress:
                 progress(p, sel[i], cached=False)
 
     try:
-        sizes = [_slot_bytes(_wire_layout(key, len(names), transport))
-                 for names, key in batches]
-        plan = [(names, key, ring is not None and ring.fits(n))
-                for (names, key), n in zip(batches, sizes)]
-        fitting = [n for n, (_, _, on) in zip(sizes, plan) if on]
-        if fitting:
-            ring.reserve(max(fitting), pinned)
-        # one batch of readback slack: batch k's sweep is read back only
-        # after batch k+1's transfer and sweep were enqueued, so the card
-        # always has the next batch queued; the staging thread fills the
-        # other slot meanwhile, once batch k-1's copy from it has ended
-        # (the event that ``send`` recorded), and a bucket's edge is no
-        # different
-        fut = pool.submit(stage, *plan[0]) if plan else None
-        pending = None
-        for bi, (names, key, _) in enumerate(plan):
-            with span("fleet.stage_wait"):
-                wire, slot = fut.result()
-            if bi + 1 < len(plan):
-                fut = pool.submit(stage, *plan[bi + 1])
-            handles = dispatch(wire, slot, meta[names[0]][1])
-            if pending is not None:
-                finish(pending)
-            pending = (names, key[0], handles)
-        if pending is not None:
-            finish(pending)
+        ring.reserve(largest, shared and device.type == "cuda")
+        _run_ahead(plan, stage, dispatch, finish)
     finally:
-        pool.shutdown()
-        if ring is not None:
+        if shared:
             ring.lock.release()
     return results
-
-
-def _metadata_into(slot: _Slot, pk):
-    """``pk`` with its widths, offsets and orders copied into ``slot``
-    right after its words, which the packer wrote there: the packed wire
-    is then one range of the slot."""
-    off = slot.offset(pk.words) + _aligned(pk.words.nbytes)
-    moved = {}
-    for name in ("widths", "woffs", "order"):
-        a = getattr(pk, name)
-        moved[name] = slot.view(off, a.shape, a.dtype)
-        moved[name][...] = a
-        off += _aligned(a.nbytes)
-    return dataclasses.replace(pk, **moved)
 
 
 def _apply_one(path: str, outdir: str, result: SearchResult,
@@ -537,19 +518,8 @@ def apply_paths(
     os.makedirs(outdir, exist_ok=True)
     written: Dict[str, str] = {}
 
-    buckets: Dict[tuple, List[str]] = {}
-    meta: Dict[str, tuple] = {}
-    for p in paths:
-        rate, channels, n, bits = _probe(p)
-        geom = offline_geometry(rate, blksiz)
-        key = _bucket_key(rate, channels, n, bits, geom.parsiz)
-        meta[p] = (rate, geom)
-        buckets.setdefault(key, []).append(p)
-
-    pool = ThreadPoolExecutor(1)
-
-    def stage(group: List[str], key):
-        rate, channels, n_pad, _bits = key
+    def stage(group: List[str], key, _geom):
+        _rate, channels, n_pad, _bits = key
         buf = np.zeros((len(group), channels, n_pad), np.float32)
         lens = []
         metas = []
@@ -566,37 +536,23 @@ def apply_paths(
             for p in group])
         return buf, units, lens, metas
 
-    def finish(pending, rate) -> None:
-        names, handle, lens, metas = pending
+    def dispatch(item, staged):
+        buf, units, lens, metas = staged
+        return apply_angles(buf, units, item[2], device=device), lens, metas
+
+    def finish(item, handles) -> None:
+        names, key, _geom = item
+        handle, lens, metas = handles
         y = handle.cpu().numpy()
         for i, p in enumerate(names):
             dst = os.path.join(outdir, os.path.basename(p))
-            write_audio(dst, y[i, :, : lens[i]], rate, metas[i],
+            write_audio(dst, y[i, :, : lens[i]], key[0], metas[i],
                         like=p)
             written[p] = dst
             if progress:
                 progress(p, dst)
 
-    try:
-        for key, group in buckets.items():
-            rate = key[0]
-            geom = meta[group[0]][1]
-            parts = [group[i : i + batch]
-                     for i in range(0, len(group), batch)]
-            fut = pool.submit(stage, parts[0], key)
-            pending = None
-            for bi, names in enumerate(parts):
-                buf, units, lens, metas = fut.result()
-                if bi + 1 < len(parts):
-                    fut = pool.submit(stage, parts[bi + 1], key)
-                handle = apply_angles(buf, units, geom, device=device)
-                if pending is not None:
-                    finish(pending, rate)
-                pending = (names, handle, lens, metas)
-            if pending is not None:
-                finish(pending, rate)
-    finally:
-        pool.shutdown()
+    _run_ahead(_plan(paths, blksiz, batch), stage, dispatch, finish)
     return written
 
 

@@ -60,6 +60,19 @@ _GRID_MANTISSA_BITS = 5
 # The unpack walks the streams in groups of about this many samples, so
 # its int32 temporaries stay at a few hundred MB whatever the batch.
 _UNPACK_GROUP_SAMPLES = 1 << 25
+# In a scratch, each array of the wire starts at a multiple of this many
+# int32 words (256 bytes), so its copy on a device is aligned for vector
+# loads.
+_ALIGN_WORDS = 64
+
+
+def _aligned_words(n: int) -> int:
+    return -(-n // _ALIGN_WORDS) * _ALIGN_WORDS
+
+
+def _meta_words(streams: int, nb: int) -> int:
+    """Scratch words of a chunk's widths, offsets and orders."""
+    return 2 * _aligned_words(streams * nb) + _aligned_words(streams)
 
 
 def _grid_pad(need: int) -> int:
@@ -91,10 +104,18 @@ class PackedChunk:
     n: int
     shape: Tuple[int, ...]
 
+    def arrays(self) -> tuple:
+        """The wire's arrays, in order: words, widths, woffs, order."""
+        return self.words, self.widths, self.woffs, self.order
+
+    def with_arrays(self, arrays) -> "PackedChunk":
+        """This chunk over ``arrays`` in place of :meth:`arrays` (their
+        copies on a device, say)."""
+        return PackedChunk(*arrays, n=self.n, shape=self.shape)
+
     @property
     def wire_bytes(self) -> int:
-        return (self.words.nbytes + self.widths.nbytes
-                + self.woffs.nbytes + self.order.nbytes)
+        return sum(a.nbytes for a in self.arrays())
 
 
 def _signed_width(mx: np.ndarray, mn: np.ndarray) -> np.ndarray:
@@ -142,7 +163,9 @@ def pack_residual(x16: np.ndarray,
     buffer (>= worst case: 17 bits/sample + grid padding) that a staging
     ring can reuse.  The returned ``words`` is a VIEW into it — callers
     must not rewrite the buffer while a device transfer of the view may
-    be in flight.
+    be in flight.  The host packer takes it where it holds
+    :func:`scratch_words` ``(shape, None)`` and then writes the whole
+    wire there, metadata included.
 
     ``native`` selects the host packer (csrc/wire_pack.cc: bit-identical
     to the numpy path, far faster, GIL released): None uses it, True
@@ -153,7 +176,7 @@ def pack_residual(x16: np.ndarray,
     shape = x16.shape
     n = shape[-1]
     if native is not False:
-        return _pack_residual_host(x16.reshape(-1, n), out_words, n, shape)
+        return _pack_residual_host(x16.reshape(-1, n), out_words, shape)
     streams = x16.reshape(-1, n).astype(np.int32)
     S = streams.shape[0]
     nb = -(-n // BLOCK)
@@ -230,19 +253,35 @@ def _host_layout(streams16: np.ndarray):
 
 def _pack_residual_host(streams16: np.ndarray,
                         out_words: np.ndarray | None,
-                        n: int, shape) -> PackedChunk:
+                        shape) -> PackedChunk:
     """The host packer's path of :func:`pack_residual`."""
-    widths, woffs, order, total, workers = _host_layout(streams16)
+    layout = _host_layout(streams16)
+    if (out_words is None
+            or out_words.size < scratch_words(streams16.shape, None)):
+        out_words = np.empty(_grid_pad(layout[3] + 1), np.int32)
+    return _fill(streams16, out_words, layout, shape)
+
+
+def _fill(streams16: np.ndarray, scratch: np.ndarray, layout,
+          shape) -> PackedChunk:
+    """Pass 2 of the host packer, after pass 1's ``layout``: the chunk
+    whose words are the start of ``scratch``.  Where the scratch has room,
+    the widths, offsets and orders are copied in right after the words,
+    each aligned, so the whole wire is one range of the scratch and one
+    copy ships it."""
+    widths, woffs, order, total, workers = layout
     wpad = _grid_pad(total + 1)
-    if (out_words is not None
-            and out_words.size >= scratch_words(streams16.shape, None)):
-        words = out_words[:wpad]
-    else:
-        words = np.empty(wpad, np.int32)
+    words = scratch[:wpad]
     _wirepack.fill(streams16, widths, woffs, order, words, total, workers)
     words[total:] = 0  # slack word + grid padding
-    return PackedChunk(words=words, widths=widths, woffs=woffs,
-                       order=order, n=n, shape=shape)
+    meta = [widths, woffs, order]
+    off = _aligned_words(wpad)
+    if off + _meta_words(*widths.shape) <= scratch.size:
+        for i, a in enumerate(meta):
+            meta[i] = scratch[off : off + a.size].reshape(a.shape)
+            meta[i][...] = a
+            off += _aligned_words(a.size)
+    return PackedChunk(words, *meta, n=shape[-1], shape=shape)
 
 
 def packed_bits_per_sample(chunk: PackedChunk) -> float:
@@ -262,11 +301,14 @@ def scratch_words(shape, threshold: float | None = 0.9) -> int:
     n) may write: the padded words of :func:`pack_adaptive`'s budget at
     ``threshold``, or with ``threshold`` None those of
     :func:`pack_residual`'s worst case, in which the chosen order never
-    beats order 0's <= 16 bits a sample."""
+    beats order 0's <= 16 bits a sample; then the chunk's widths, offsets
+    and orders, so that the whole wire lands in the scratch."""
+    streams, nb = math.prod(shape[:-1]), -(-shape[-1] // BLOCK)
     if threshold is not None:
-        return _grid_pad(_budget_words(shape, threshold) + 1)
-    streams = math.prod(shape[:-1])
-    return _grid_pad(streams * -(-shape[-1] // BLOCK) * (BLOCK // 2) + 1)
+        words = _grid_pad(_budget_words(shape, threshold) + 1)
+    else:
+        words = _grid_pad(streams * nb * (BLOCK // 2) + 1)
+    return _aligned_words(words) + _meta_words(streams, nb)
 
 
 def pack_adaptive(x16: np.ndarray, scratch: np.ndarray,
@@ -281,23 +323,20 @@ def pack_adaptive(x16: np.ndarray, scratch: np.ndarray,
     doesn't win.  The margin is there because a pack that saves only a
     few percent of the bytes costs more in pack and unpack time than the
     link gives back.  Otherwise the words are written into ``scratch``
-    (int32), which must hold the padded words.  Returns None when pcm16
-    should be shipped: over the budget, or more words than ``scratch``
-    holds.
+    (int32), which must hold the padded words, and the metadata after
+    them where it holds :func:`scratch_words` ``(shape, threshold)``.
+    Returns None when pcm16 should be shipped: over the budget, or more
+    words than ``scratch`` holds.
     """
     shape = x16.shape
     n = shape[-1]
     streams = np.ascontiguousarray(x16.reshape(-1, n), np.int16)
-    budget = _budget_words(streams.shape, threshold)
-    widths, woffs, order, total, workers = _host_layout(streams)
-    wpad = _grid_pad(total + 1)
-    if total > budget or wpad > scratch.size:
+    layout = _host_layout(streams)
+    total = layout[3]
+    if (total > _budget_words(streams.shape, threshold)
+            or _grid_pad(total + 1) > scratch.size):
         return None
-    words = scratch[:wpad]
-    _wirepack.fill(streams, widths, woffs, order, words, total, workers)
-    words[total:] = 0
-    return PackedChunk(words=words, widths=widths, woffs=woffs,
-                       order=order, n=n, shape=shape)
+    return _fill(streams, scratch, layout, shape)
 
 
 def _unpack_group(words: torch.Tensor, widths: torch.Tensor,
@@ -366,8 +405,7 @@ def sweep_peaks_aux_packed(pk: PackedChunk, geom, chunk: int = 4096,
     from .sweep import _sweep_impl
 
     dev = resolve_device(device)
-    wire = [torch.as_tensor(a, device=dev)
-            for a in (pk.words, pk.widths, pk.woffs, pk.order)]
+    wire = [torch.as_tensor(a, device=dev) for a in pk.arrays()]
     with span("packed.unpack", device=dev):
         x = unpack_residual(*wire, pk.n)
     return _sweep_impl(x.reshape(pk.shape), geom, chunk)

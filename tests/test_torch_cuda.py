@@ -228,7 +228,7 @@ def test_launches_counted(x):
     assert _build.launches == {
         "rotate_peak_sweep": 1, "hilbert_small": 1, "rotate_small": 1,
         "stream_mix": 1, "fused_hilbert": 1, "fused_rotate_fir": 1,
-        "peak": 1}
+        "peak": 1, "pcm24_widen": 0}
 
 
 def test_rows_beyond_65535(dev):
@@ -595,11 +595,11 @@ def _fleet_counts(records) -> dict:
     return out
 
 
-def test_fleet_transports_equal_on_card(dev, tmp_path):
+def test_fleet_transports_equal_on_card(dev, tmp_path, monkeypatch):
     """pcm16, packed and auto give the same results on the card, equal to
     the per-file search and to the CPU's; every batch ships its wire from
-    a pinned slot of the staging ring (``fleet.pinned_bytes`` equal to
-    ``fleet.wire_bytes``); the batched apply equals the per-file apply."""
+    a pinned slot of the process's staging ring; the batched apply equals
+    the per-file apply."""
     from phaserotate_tpu_torch import fleet
     from phaserotate_tpu_torch.io import read_audio
     from phaserotate_tpu_torch.utils.profiling import drain, recording
@@ -611,6 +611,10 @@ def test_fleet_transports_equal_on_card(dev, tmp_path):
         write_wav(p, x.astype(np.float32), 48000, bits=16,
                   float_format=False)
         paths.append(p)
+    taken = []
+    take = fleet._StagingRing.take
+    monkeypatch.setattr(fleet._StagingRing, "take", lambda ring: taken.append(
+        (ring, ring.pinned)) or take(ring))
     _build.reset_launches()
     drain()
     with recording():
@@ -624,8 +628,7 @@ def test_fleet_transports_equal_on_card(dev, tmp_path):
                                       base[p][0].peak_min)
     counts = _fleet_counts(drain())
     assert len(counts["fleet.wire_bytes"]) == 9
-    assert counts["fleet.pinned_bytes"] == counts["fleet.wire_bytes"]
-    assert fleet._RING.pinned and fleet._RING.pinned_bytes > 0
+    assert taken == [(fleet._RING, True)] * 9
     cpu = fleet.analyze_paths(paths, transport="pcm16", batch=2,
                               device="cpu")
     for p in paths:
@@ -677,8 +680,8 @@ def test_pcm24_widen_bit_equal(dev, rows, channels, n, offset):
 
 def test_fleet_24bit_on_card_equals_cpu(dev, tmp_path, monkeypatch):
     """A 24-bit stereo fleet at 96 kHz (two buckets, blksiz 16384) on the
-    card: the pcm24 wire from pinned slots of the staging ring
-    (``fleet.pinned_bytes`` equal to ``fleet.wire_bytes`` in every batch)
+    card: the pcm24 wire from pinned slots of the process's staging ring
+    in every batch (plain host memory on the CPU)
     and the widen kernel; the same angles and input peaks as on the CPU,
     and tables within 2e-5 (the card's convolution rounds otherwise than
     the CPU's)."""
@@ -697,9 +700,14 @@ def test_fleet_24bit_on_card_equals_cpu(dev, tmp_path, monkeypatch):
                   bits=24, float_format=False)
         paths.append(p)
     select = fleet.select_min_peak_angles_batch
+    taken = []
+    take = fleet._StagingRing.take
+    monkeypatch.setattr(fleet._StagingRing, "take", lambda ring: taken.append(
+        (ring, ring.pinned)) or take(ring))
     runs = {}
     for where in ("cuda", "cpu"):
         tables, order = [], []
+        taken.clear()
 
         def capture(t, *a, _tables=tables, **kw):
             _tables.extend(np.array(row) for row in t)
@@ -714,11 +722,9 @@ def test_fleet_24bit_on_card_equals_cpu(dev, tmp_path, monkeypatch):
                 progress=lambda p, r, cached, _order=order: _order.append(p))
         counts = _fleet_counts(drain())
         assert len(counts["fleet.wire_bytes"]) == 2
+        assert taken == [(fleet._RING, where == "cuda")] * 2
         if where == "cuda":
             assert _build.launches["pcm24_widen"] == 2
-            assert counts["fleet.pinned_bytes"] == counts["fleet.wire_bytes"]
-        else:
-            assert counts["fleet.pinned_bytes"] == [0, 0]
         runs[where] = (res, tables, order)
     (card_res, card_tables, card_order), (cpu_res, cpu_tables, cpu_order) = (
         runs["cuda"], runs["cpu"])

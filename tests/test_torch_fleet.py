@@ -160,15 +160,17 @@ def test_fleet_mixed_lengths_and_formats(tmp_path):
                          exact=False)
 
 
-def test_fleet_batched_apply_matches_per_file(tmp_path):
+@pytest.mark.parametrize("batch", [1, 2])
+def test_fleet_batched_apply_matches_per_file(tmp_path, batch):
     """apply_paths (one device pass per batch, files zero-padded to the
     bucket length) writes the audio a per-file run produces: mixed
-    lengths and channel counts in one fleet."""
+    lengths and channel counts in one fleet, so the run-ahead loop
+    crosses a bucket's edge, with one file a batch and with two."""
     paths = _mk(tmp_path, n_files=3)
     paths += _mk_stereo(tmp_path, n_files=1, n=33333)
     results = analyze_paths(paths)
     written = p_fleet.apply_paths(paths, results, str(tmp_path / "out"),
-                                  batch=2, device="cpu")
+                                  batch=batch, device="cpu")
     assert set(written) == set(paths)
     single_dir = str(tmp_path / "single")
     os.makedirs(single_dir)
@@ -384,38 +386,94 @@ def test_fleet_ring_leaves_no_stale_samples_in_a_pad(tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("transport", ["pcm16", "packed", "auto"])
-def test_fleet_batch_over_the_ring_share_goes_pageable(tmp_path, monkeypatch,
-                                                       transport):
+def test_fleet_batch_over_the_ring_share_is_split(tmp_path, monkeypatch,
+                                                  transport):
     """With the ring's cap lowered so that a slot holds one file of the
-    bucket and not two, the two-file batch is staged in a fresh array
-    while the one-file batch takes a slot; the tables equal the fresh
-    per-file sweeps all the same."""
+    bucket and not two, the two-file batch is split into one-file
+    batches: every file takes a slot of the process's ring, the files
+    come back in their input order, and the tables equal the fresh
+    per-file sweeps bit for bit."""
     paths = _mk_ring(tmp_path)
     key = p_fleet._bucket_key(RATE, 2, 32768, 16, 2048)
-    one, two = (p_fleet._pow2(p_fleet._slot_bytes(
-        p_fleet._wire_layout(key, k, transport))) for k in (1, 2))
+    one, two = (p_fleet._pow2(p_fleet._slot_bytes(key, k, transport))
+                for k in (1, 2))
     assert two > one
     monkeypatch.setattr(p_fleet, "_ring_cap_bytes", lambda: 2 * one)
     taken = []
     take = p_fleet._StagingRing.take
     monkeypatch.setattr(p_fleet._StagingRing, "take",
-                        lambda ring: taken.append(1) or take(ring))
-    res, got = _run_tables(monkeypatch, paths[:2] + paths[4:5], batch=2,
-                           blksiz=2048, transport=transport)
-    assert len(taken) == 1
-    _assert_fresh(res, got, _fresh_tables(paths, 2048),
-                  paths[:2] + paths[4:5])
+                        lambda ring: taken.append(ring) or take(ring))
+    run = paths[:2] + paths[4:5]
+    res, got = _run_tables(monkeypatch, run, batch=2, blksiz=2048,
+                           transport=transport)
+    assert list(got) == run
+    assert taken == [p_fleet._RING] * len(run)
+    _assert_fresh(res, got, _fresh_tables(paths, 2048), run)
 
 
-def test_fleet_calls_in_threads_share_the_ring(tmp_path, monkeypatch):
+# (key, files, transport, slot bytes, bytes reserved a slot) for every
+# batch shape of the two catalogue cells (32-path slices, batches of 8;
+# pcm16 warms up the 16-bit buckets past the first) and two packed ones.
+# The sizes are fixed: a change to the slot's layout must not change what
+# the ring pins.
+RING_BYTES = {
+    "cli_48k": [
+        ((48000, 2, 8388608, 16), 6, "auto", 386072832, 536870912),
+        ((48000, 2, 8388608, 16), 6, "pcm16", 386072832, 536870912),
+        ((48000, 2, 16777216, 16), 2, "auto", 255983872, 268435456),
+        ((48000, 2, 16777216, 16), 8, "auto", 1023934720, 1073741824),
+        ((48000, 2, 16777216, 16), 2, "pcm16", 255983872, 268435456),
+        ((48000, 2, 16777216, 16), 8, "pcm16", 1023934720, 1073741824),
+        ((48000, 2, 33554432, 16), 8, "auto", 2047869184, 2147483648),
+        ((48000, 2, 33554432, 16), 8, "pcm16", 2047869184, 2147483648),
+        ((48000, 2, 8388608, 16), 8, "packed", 553910528, 1073741824),
+        ((48000, 2, 33554432, 16), 6, "packed", 1644953856, 2147483648),
+    ],
+    "cli_96k24": [
+        ((96000, 2, 16777216, 24), 6, "auto", 603979776, 1073741824),
+        ((96000, 2, 33554432, 24), 2, "auto", 402653184, 536870912),
+        ((96000, 2, 33554432, 24), 8, "auto", 1610612736, 2147483648),
+        ((96000, 2, 67108864, 24), 8, "auto", 3221225472, 4294967296),
+    ],
+}
+
+
+@pytest.mark.parametrize("config", sorted(RING_BYTES))
+def test_fleet_ring_reserves_todays_bytes(monkeypatch, config):
+    """Each catalogue batch's slot is the size it was, and on a host of
+    96 GiB (the card's) no catalogue batch is split."""
+    monkeypatch.setattr(p_fleet, "_ring_cap_bytes", lambda: (96 << 30) // 4)
+    share = p_fleet._ring_cap_bytes() // len(p_fleet._RING.slots)
+    for key, files, transport, nbytes, reserved in RING_BYTES[config]:
+        got = p_fleet._slot_bytes(key, files, transport)
+        assert (got, p_fleet._pow2(got)) == (nbytes, reserved), (
+            key, files, transport)
+        assert reserved <= share
+
+
+def test_fleet_calls_in_threads_stage_through_their_own_rings(tmp_path,
+                                                              monkeypatch):
     """Four ``analyze_paths`` calls at once, in threads, with a short
-    switch interval: one holds the ring, the others stage pageable, and
-    every table equals the fresh per-file sweep, bit for bit."""
+    switch interval: the call that holds the process's ring stages its
+    first batch only once the three others have each staged one through
+    a ring of their own.  Every table equals the fresh per-file sweep,
+    bit for bit, and the ring's lock is released."""
     paths = _mk_ring(tmp_path)
     want = _fresh_tables(paths, 2048)
     select = p_fleet.select_min_peak_angles_batch
     got, errors = {}, []
     local = threading.local()
+    taken = []
+    others = threading.Event()
+    take = p_fleet._StagingRing.take
+
+    def take_after_others(ring):
+        taken.append(ring)
+        if ring is p_fleet._RING:
+            others.wait(timeout=120)
+        elif len({id(r) for r in taken if r is not p_fleet._RING}) == 3:
+            others.set()
+        return take(ring)
 
     def capture(tables, *a, **k):
         local.rows.extend(zip(np.array(tables), np.array(k["rot0"])))
@@ -433,6 +491,7 @@ def test_fleet_calls_in_threads_share_the_ring(tmp_path, monkeypatch):
             errors.append(e)
 
     monkeypatch.setattr(p_fleet, "select_min_peak_angles_batch", capture)
+    monkeypatch.setattr(p_fleet._StagingRing, "take", take_after_others)
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-5)
     try:
@@ -444,6 +503,10 @@ def test_fleet_calls_in_threads_share_the_ring(tmp_path, monkeypatch):
     finally:
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert others.is_set()
+    rings = {id(r): r for r in taken}
+    assert len(rings) == 4 and id(p_fleet._RING) in rings
+    assert not any(r.pinned for r in rings.values())
     assert sorted(got) == [0, 1, 2, 3]
     for i, (res, tables) in got.items():
         _assert_fresh(res, tables, want, paths[i % 2 :])

@@ -523,27 +523,28 @@ def test_ring_leaves_no_stale_samples_in_a_24bit_pad(tmp_path, monkeypatch):
             assert np.array_equal(got[p][1], want[p][1]), p
 
 
-def test_24bit_batch_over_the_ring_share_goes_pageable(tmp_path,
-                                                       monkeypatch):
+def test_24bit_batch_over_the_ring_share_is_split(tmp_path, monkeypatch):
     """With the ring's cap lowered so that a slot holds one 24-bit file
-    of the bucket and not two, the two-file batch is staged in a fresh
-    array and the one-file batch in a slot; the tables equal the fresh
-    per-file sweeps all the same."""
+    of the bucket and not two, the two-file batch is split into one-file
+    batches: every file takes a slot of the process's ring, the files
+    come back in their input order, and the tables equal the fresh
+    per-file sweeps bit for bit."""
     paths = _ring_catalogue(tmp_path)
     run = paths[:2] + paths[4:5]
     key = fleet._bucket_key(96000, 2, 65536, 24, 16384)
-    one = fleet._pow2(fleet._slot_bytes(fleet._wire_layout(key, 1, "auto")))
+    one = fleet._pow2(fleet._slot_bytes(key, 1, "auto"))
+    assert fleet._pow2(fleet._slot_bytes(key, 2, "auto")) > one
     want = _fresh_tables(run)
     taken = []
     take = fleet._StagingRing.take
     monkeypatch.setattr(fleet, "_ring_cap_bytes", lambda: 2 * one)
     monkeypatch.setattr(fleet._StagingRing, "take",
-                        lambda ring: taken.append(1) or take(ring))
+                        lambda ring: taken.append(ring) or take(ring))
     got = _capture(monkeypatch)
     order = []
     fleet.analyze_paths(run, batch=2, device="cpu",
                         progress=lambda p, r, cached: order.append(p))
-    assert len(taken) == 1 and sorted(order) == sorted(run)
+    assert order == run and taken == [fleet._RING] * len(run)
     for p, table, rot0 in zip(order, got["tables"], got["rot0"]):
         assert np.array_equal(table, want[p][0]), p
         assert np.array_equal(rot0, want[p][1]), p

@@ -8,9 +8,8 @@ buffer that ``drain()`` empties.  A CPU ``fleet.analyze_paths`` under each
 transport records one ``fleet.decode`` per file, one ``fleet.stage``,
 ``fleet.pack``, ``fleet.stage_wait``, ``fleet.dispatch`` and
 ``fleet.readback`` per batch, ``packed.unpack`` per packed batch,
-counters whose bytes equal what was shipped (``fleet.pinned_bytes`` 0,
-as nothing is pinned on the CPU), and ``packed.pack_workers`` once per
-host pack; on 24-bit WAVs it records a ``pcm24`` ``fleet.pack`` and a
+counters whose bytes equal what was shipped, and ``packed.pack_workers``
+once per host pack; on 24-bit WAVs it records a ``pcm24`` ``fleet.pack`` and a
 ``pcm24.widen`` per batch and counts the payload in ``fleet.wire_bytes``.
 """
 
@@ -274,8 +273,9 @@ def test_fleet_records_its_batches(tmp_path, monkeypatch, transport):
 
     assert values("fleet.wire_bytes") == [b for _, b, _ in shipped]
     assert values("fleet.pcm16_bytes") == [n for _, _, n in shipped]
-    # the ring's slots are plain host memory on the CPU: nothing pinned
-    assert values("fleet.pinned_bytes") == [0] * batches
+    # each batch counts its wire, then its pcm16 bytes
+    assert [c.name for c in counts if c.name.startswith("fleet.")] == [
+        "fleet.wire_bytes", "fleet.pcm16_bytes"] * batches
     # every pack, shipped or not, counts its workers once
     assert len(values("packed.pack_workers")) == (
         0 if transport == "pcm16" else batches)
@@ -326,9 +326,8 @@ def test_fleet_records_its_24bit_batches(tmp_path, monkeypatch):
     assert all("device_ms" not in r.attrs for r in widen)
     assert not named("packed.unpack")
     counts = [(r.name, r.n) for r in got if isinstance(r, CountRecord)]
-    assert counts == [c for nbytes, _, _ in staged
-                      for c in (("fleet.wire_bytes", nbytes),
-                                ("fleet.pinned_bytes", 0))]
+    assert counts == [("fleet.wire_bytes", nbytes)
+                      for nbytes, _, _ in staged]
 
 
 def test_fleet_profile_variable_traces_the_spans(tmp_path, monkeypatch,
@@ -352,34 +351,7 @@ def test_fleet_profile_variable_traces_the_spans(tmp_path, monkeypatch,
     assert [r.attrs["transport"] for r in got
             if r.name == "fleet.pack"] == ["packed"]
     assert [r.name for r in got if isinstance(r, CountRecord)] == [
-        "packed.pack_workers", "fleet.wire_bytes", "fleet.pinned_bytes",
-        "fleet.pcm16_bytes"]
-
-
-@pytest.mark.parametrize("staging", ["ring", "pageable"])
-def test_fleet_counts_pinned_bytes_beside_the_wire(tmp_path, monkeypatch,
-                                                   staging):
-    """Each batch counts ``fleet.pinned_bytes`` right after
-    ``fleet.wire_bytes``: 0 on the CPU, whether the batch was staged in a
-    slot of the ring (plain host memory there) or, past the ring's cap,
-    in a fresh pageable array."""
-    if staging == "pageable":
-        monkeypatch.setattr(fleet, "_ring_cap_bytes", lambda: 0)
-    taken = []
-    take = fleet._StagingRing.take
-    monkeypatch.setattr(fleet._StagingRing, "take",
-                        lambda ring: taken.append(1) or take(ring))
-    paths = _catalogue(tmp_path)
-    with recording():
-        fleet.analyze_paths(paths, batch=1, blksiz=2048, device="cpu")
-    counts = [(r.name, r.n) for r in drain()
-              if isinstance(r, CountRecord) and r.name.startswith("fleet.")]
-    assert [name for name, _ in counts] == [
-        "fleet.wire_bytes", "fleet.pinned_bytes",
-        "fleet.pcm16_bytes"] * len(paths)
-    assert [n for name, n in counts if name == "fleet.pinned_bytes"] == [
-        0] * len(paths)
-    assert len(taken) == (len(paths) if staging == "ring" else 0)
+        "packed.pack_workers", "fleet.wire_bytes", "fleet.pcm16_bytes"]
 
 
 @pytest.mark.parametrize("workers", [None, 1, 3, "more"])
