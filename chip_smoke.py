@@ -885,7 +885,9 @@ def drive_catalogue(tmp, dev, card, times, x4, fleet, stems, stem_degs,
         print(f"fleet analyze {transport}: {len(paths) / wall:.2f} files/s, "
               f"{audio_s / wall:.1f}x realtime, {wall:.6f} s; "
               f"{len(kinds)} batches ({kinds.count('packed')} packed, "
-              f"{kinds.count('pcm16')} pcm16), {wire} wire bytes, "
+              f"{kinds.count('pcm16')} pcm16), decode threads "
+              f"{counted['fleet.decode_workers']}, pack workers "
+              f"{counted.get('packed.pack_workers', [])}, {wire} wire bytes, "
               f"{8.0 * wire / samples:.4f} bits/sample of the padded batch; "
               f"peak device memory {peak} bytes ({peak - base} above the "
               f"{base} held before) [{card}]")

@@ -26,15 +26,19 @@ it is (the ``pcm24`` wire), widened on the device
 8 bits, so ``pcm16`` and ``packed`` refuse such a file.  Every other
 source (24-bit FLAC or AIFF among them) takes the int16 path.
 
-Every batch is staged the same way: the staging thread decodes it into
-one of two reused host slots of a ``_StagingRing`` and the dispatch
-thread copies the slot's wire to the device in one non-blocking copy,
-then records a CUDA event that tells the staging thread when it may
-write that slot again.  The process keeps one ring (``_RING``), pinned
-where the sweeps run on a card and used by one call at a time; each of
-its slots holds at most half of a quarter of the host's memory, so the
-batch plan splits a batch over that share into the fewest consecutive
-batches that fit, the files in their order.  A call that finds the ring
+Every batch is staged the same way: the staging thread takes one of two
+reused host slots of a ``_StagingRing``, the batch's files are decoded
+into their rows of it at once on the call's decode threads (as many as
+the files, but at most the CPUs the process may run on less one, which
+the dispatch thread keeps; one file, or one such CPU, decodes on the
+staging thread), and the dispatch thread copies the slot's wire to the
+device in one non-blocking copy, then records a CUDA event that tells
+the staging thread when it may write that slot again.  The process
+keeps one ring (``_RING``), pinned where the sweeps run on a card and
+used by one call at a time; each of its slots holds at most half of a
+quarter of the host's memory, so the batch plan splits a batch over that
+share into the fewest consecutive batches that fit, the files in their
+order.  A call that finds the ring
 taken, or whose plan still holds a batch over the share (one file alone
 over it, or a host that does not say its memory size), stages through a
 ring of its own in plain host memory, dropped when it returns.  CUDA
@@ -55,8 +59,10 @@ reuse stored tables without touching the device.  A checkpoint written
 by either package resumes in the other.
 
 Tracing (utils/profiling): the staging thread (``fleet-stage``) records
-``fleet.stage`` per batch, ``fleet.decode`` per file and ``fleet.pack``
-per batch (attribute ``transport``: packed, pcm16 or pcm24); the dispatch
+``fleet.stage`` and ``fleet.pack`` per batch (attribute ``transport``:
+packed, pcm16 or pcm24) and counts ``fleet.decode_workers``, the threads
+that decoded the batch; each file's decode thread (``fleet-stage-decode``,
+or the staging thread) records its ``fleet.decode``; the dispatch
 loop records ``fleet.stage_wait`` (waiting for the staging thread),
 ``fleet.dispatch`` (transfer, unpack or widen, sweep enqueue) and
 ``fleet.readback``; each batch counts ``fleet.wire_bytes`` and
@@ -137,6 +143,13 @@ def _ring_cap_bytes() -> int:
         return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES") // 4
     except (ValueError, OSError):
         return 0
+
+
+def _decode_workers(files: int) -> int:
+    """Threads that decode a batch of ``files`` files: the CPUs this
+    process may run on but one (the dispatch thread's), no more than the
+    files, and at least one."""
+    return max(1, min(files, len(os.sched_getaffinity(0)) - 1))
 
 
 def _wire_layout(key, files: int, transport: str) -> Tuple[int, int]:
@@ -318,9 +331,10 @@ def analyze_paths(
 ) -> Dict[str, Tuple[SearchResult, int]]:
     """Analyze many files -> {path: (SearchResult, rate)}.
 
-    Files are bucketed by geometry, decoded to int16 PCM on a background
-    thread into the staging ring (overlapped with the copy and device
-    sweep of the previous batch), zero-padded to the bucket length, and
+    Files are bucketed by geometry, decoded to int16 PCM into the staging
+    ring by a background thread and its decode threads, a batch's files
+    at once (overlapped with the copy and device sweep of the previous
+    batch), zero-padded to the bucket length, and
     swept ``batch`` files per device dispatch (fewer where a batch would
     not fit a slot of the ring).
 
@@ -378,6 +392,10 @@ def analyze_paths(
         _slot_bytes(key, files, transport)) <= share)
     if not plan:
         return results
+    # the call's own decode threads: they start as batches need them
+    decoders = ThreadPoolExecutor(
+        max(_decode_workers(len(names)) for names, _, _ in plan),
+        thread_name_prefix="fleet-stage-decode")
     largest = max(_slot_bytes(key, len(names), transport)
                   for names, key, _ in plan)
     # the process's ring where it is free and holds every batch; else a
@@ -394,18 +412,54 @@ def analyze_paths(
         rows[:frames] = audio[:, :frames].T
         return frames
 
+    def decode(names: List[str], rows: np.ndarray, read) -> int:
+        """Each file of ``names`` into its row of ``rows`` (``read(path,
+        row)`` returns the frames it wrote) with the row's tail past them
+        zeroed, so a reused slot never leaks an earlier batch into the
+        pad; returns the threads that decoded them.  The files are handed
+        out in order, to ``_decode_workers`` threads of ``decoders`` at
+        once, or on this thread where that is one.  A failed file stops
+        the handing out, and once every thread has stopped the error of
+        the first failed file in batch order is raised, as a serial loop
+        would raise it."""
+        todo = iter(range(len(names)))
+        lock = threading.Lock()
+        failed: Dict[int, Exception] = {}
+
+        def work() -> None:
+            while not failed:
+                with lock:
+                    i = next(todo, None)
+                if i is None:
+                    return
+                try:
+                    with span("fleet.decode"):
+                        frames = read(names[i], rows[i])
+                    rows[i, frames:] = 0
+                except Exception as e:  # raised below, in batch order
+                    failed[i] = e
+
+        workers = _decode_workers(len(names))
+        if workers == 1:
+            work()
+        else:
+            for fut in [decoders.submit(work) for _ in range(workers)]:
+                fut.result()
+        if failed:
+            raise failed[min(failed)]
+        return workers
+
     def stage(names: List[str], key, _geom):
         """Decode a batch into the ring's next slot; returns the slot,
         the wire's arrays in it (the int16 samples for pcm16, a
         PackedChunk's arrays, or at 24 bits the (files, n_pad, channels,
         3) bytes of the files' samples for pcm24), the function that
         makes the wire of those arrays or of their copies, and the sweep
-        that reads that wire.  Each row's tail past the file is zeroed,
-        so a reused slot never leaks an earlier batch into the pad.  Runs
-        on the staging thread (numpy and the host library only; no torch
-        call but the slot's event wait and the spans' ``record_function``
-        under a profiler session), so the pack overlaps the previous
-        batch's copy and device pass."""
+        that reads that wire.  Runs on the staging thread, the decode on
+        the decode threads (numpy, file reads and the host library only;
+        no torch call but the slot's event wait and the spans'
+        ``record_function`` under a profiler session), so the decode and
+        pack overlap the previous batch's copy and device pass."""
         with span("fleet.stage"):
             _rate, channels, n_pad, bits = key
             pcm, words = _wire_layout(key, len(names), transport)
@@ -417,10 +471,7 @@ def analyze_paths(
             else:
                 buf = slot.view(0, (len(names), channels, n_pad), np.int16)
                 rows, read = buf.transpose(0, 2, 1), pcm16_into
-            for i, p in enumerate(names):
-                with span("fleet.decode"):
-                    frames = read(p, rows[i])
-                rows[i, frames:] = 0
+            count("fleet.decode_workers", decode(names, rows, read))
             with span("fleet.pack") as packing:
                 pk = None
                 if bits == 16 and transport != "pcm16":
@@ -469,6 +520,7 @@ def analyze_paths(
         ring.reserve(largest, shared and device.type == "cuda")
         _run_ahead(plan, stage, dispatch, finish)
     finally:
+        decoders.shutdown()
         if shared:
             ring.lock.release()
     return results

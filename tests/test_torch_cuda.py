@@ -738,6 +738,57 @@ def test_fleet_24bit_on_card_equals_cpu(dev, tmp_path, monkeypatch):
         np.testing.assert_array_equal(g.peak_zero, w.peak_zero)
 
 
+@pytest.mark.parametrize("bits", [16, 24])
+def test_fleet_decode_threads_on_card(dev, tmp_path, monkeypatch, bits):
+    """A catalogue of six files of mixed lengths a batch, from pinned
+    slots of the process's staging ring: decoded on the host's threads
+    (``fleet.decode_workers`` above 1 in every batch) it gives the tables
+    and ``rot0`` of one decode thread, bit for bit (``auto``: packed at
+    16 bits, pcm24 at 24)."""
+    from phaserotate_tpu_torch import fleet
+    from phaserotate_tpu_torch.utils.profiling import drain, recording
+
+    paths = []
+    for i in range(6):
+        p = str(tmp_path / f"f{i}.wav")
+        x = _pcm_tones((2, 120000 - 9000 * i), 60 + i) / 32768.0
+        write_wav(p, x.astype(np.float32), 48000, bits=bits,
+                  float_format=False)
+        paths.append(p)
+    select = fleet.select_min_peak_angles_batch
+    taken = []
+    take = fleet._StagingRing.take
+    monkeypatch.setattr(fleet._StagingRing, "take", lambda ring: taken.append(
+        (ring, ring.pinned)) or take(ring))
+    runs = {}
+    for rule in ("host", "one"):
+        if rule == "one":
+            monkeypatch.setattr(fleet, "_decode_workers", lambda files: 1)
+        rows, order = [], []
+
+        def capture(t, *a, _rows=rows, **kw):
+            _rows.extend(zip(np.array(t), np.array(kw["rot0"])))
+            return select(t, *a, **kw)
+
+        monkeypatch.setattr(fleet, "select_min_peak_angles_batch", capture)
+        taken.clear()
+        drain()
+        with recording():
+            fleet.analyze_paths(
+                paths, batch=6,
+                progress=lambda p, r, cached, _order=order: _order.append(p))
+        runs[rule] = (dict(zip(order, rows)),
+                      _fleet_counts(drain())["fleet.decode_workers"])
+        assert taken == [(fleet._RING, True)] * len(runs[rule][1])
+    (host, host_workers), (one, one_workers) = runs["host"], runs["one"]
+    assert one_workers == [1] * len(one_workers)
+    assert host_workers and all(w > 1 for w in host_workers), host_workers
+    assert list(host) == list(one) == paths
+    for p in paths:
+        assert np.array_equal(host[p][0], one[p][0]), p
+        assert np.array_equal(host[p][1], one[p][1]), p
+
+
 def _wired_plugin(options, stereo=True, n=1024):
     from phaserotate_tpu_torch import plugin as pp
 

@@ -11,6 +11,7 @@ boundary is crossed.
 import os
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -511,3 +512,132 @@ def test_fleet_calls_in_threads_stage_through_their_own_rings(tmp_path,
     for i, (res, tables) in got.items():
         _assert_fresh(res, tables, want, paths[i % 2 :])
     assert not p_fleet._RING.lock.locked()
+
+
+@pytest.mark.parametrize("cpus", [1, 2, 8, 64])
+def test_fleet_decode_workers_follow_the_host(monkeypatch, cpus):
+    """A batch decodes on as many threads as it has files, but never on
+    more than the CPUs the process may run on less one (the dispatch
+    thread's), and on one for a file alone or a host of one CPU."""
+    monkeypatch.setattr(os, "sched_getaffinity", lambda pid: set(range(cpus)))
+    for files in (1, 2, 7, 8, 100):
+        got = p_fleet._decode_workers(files)
+        assert got == max(1, min(files, cpus - 1)), (files, got)
+        assert 1 <= got <= files
+    assert p_fleet._decode_workers(1) == 1
+
+
+def _mk_deep_ring(tmp_path, seed=23):
+    """The files of ``_mk_ring`` as 24-bit WAVs, every sample given a
+    random low byte: one bucket of loud long files and quiet short
+    ones."""
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i, p in enumerate(_mk_ring(tmp_path, seed)):
+        x = read_audio(p)[0].astype(np.float64) * (1 << 23)
+        q = np.clip(np.rint(x) + rng.integers(-128, 128, x.shape),
+                    -(1 << 23), (1 << 23) - 1)
+        deep = str(tmp_path / f"d{i}.wav")
+        write_wav(deep, (q / (1 << 23)).astype(np.float32), RATE, bits=24,
+                  float_format=False)
+        paths.append(deep)
+    return paths
+
+
+def _decode_case(tmp_path, transport):
+    """(paths, transport for analyze_paths, fresh tables) of a catalogue
+    in one bucket of files of mixed lengths: 16-bit WAVs for the 16-bit
+    transports, 24-bit ones for ``pcm24`` (which ``auto`` ships)."""
+    if transport == "pcm24":
+        paths = _mk_deep_ring(tmp_path)
+        geom = offline_geometry(RATE, 2048)
+        want = {}
+        for p in paths:
+            table, rot0 = sweep_peaks_aux(read_audio(p)[0], geom,
+                                          device="cpu")
+            want[p] = (table.numpy(), rot0.numpy())
+        return paths, "auto", want
+    paths = _mk_ring(tmp_path)
+    return paths, transport, _fresh_tables(paths, 2048)
+
+
+def _force_workers(monkeypatch, workers):
+    """Make every batch decode on ``workers`` threads (``"more"``: five
+    more than its files)."""
+    monkeypatch.setattr(p_fleet, "_decode_workers", lambda files: (
+        files + 5 if workers == "more" else workers))
+
+
+@pytest.mark.parametrize("workers", [2, 3, "more"])
+@pytest.mark.parametrize("transport", ["auto", "packed", "pcm16", "pcm24"])
+def test_fleet_decode_threads_give_one_threads_results(tmp_path, monkeypatch,
+                                                       transport, workers):
+    """A batch's files decoded on several threads at once give the tables,
+    ``rot0`` and selections of one thread, bit for bit, each equal to the
+    sweep of a fresh array of the file's own samples: batches of four
+    files of mixed lengths in one bucket, then two (and 24-bit files,
+    which ride the pcm24 wire)."""
+    paths, transport, want = _decode_case(tmp_path, transport)
+    runs = {}
+    for w in (1, workers):
+        _force_workers(monkeypatch, w)
+        runs[w] = _run_tables(monkeypatch, paths, batch=4, blksiz=2048,
+                              transport=transport)
+    (one, one_tables), (many, many_tables) = runs[1], runs[workers]
+    assert list(many_tables) == list(one_tables) == paths
+    _assert_fresh(one, one_tables, want, paths)
+    _assert_fresh(many, many_tables, want, paths)
+    _assert_same_results(many, one, paths, exact=True)
+
+
+@pytest.mark.parametrize("transport", ["auto", "packed", "pcm16", "pcm24"])
+def test_fleet_decode_threads_leave_no_stale_samples_in_a_pad(
+        tmp_path, monkeypatch, transport):
+    """Batches of two on the decode threads (loud, loud, then the quiet
+    short pair in the slot the first loud pair filled), and batches of
+    three files a batch's threads more than its files: every table
+    equals the fresh per-file sweep, so each thread zeroed its own row's
+    pad."""
+    paths, transport, want = _decode_case(tmp_path, transport)
+    for workers, batch in ((2, 2), ("more", 2), (3, 3)):
+        _force_workers(monkeypatch, workers)
+        res, got = _run_tables(monkeypatch, paths, batch=batch, blksiz=2048,
+                               transport=transport)
+        _assert_fresh(res, got, want, paths)
+
+
+@pytest.mark.parametrize("workers", [1, 3])
+@pytest.mark.parametrize("bits", [16, 24])
+def test_fleet_decode_threads_raise_the_first_failed_file(
+        tmp_path, monkeypatch, bits, workers):
+    """Files 2 and 4 of a batch of six fail to decode, file 4 at once
+    and file 2 only after a while: the call raises file 2's error, as
+    one thread reading them in order does, whatever the threads; the
+    ring's lock is released, and the next call of the process, on the
+    good files, succeeds with the fresh per-file tables."""
+    from phaserotate_tpu_torch import io as p_io
+    from phaserotate_tpu_torch.io import WavFormatError, pcm24
+
+    paths, transport, want = _decode_case(
+        tmp_path, "pcm24" if bits == 24 else "pcm16")
+    module, name = ((pcm24, "read_pcm24_into") if bits == 24
+                    else (p_io, "read_audio_pcm16"))
+    read = getattr(module, name)
+    bad = {paths[2]: 0.3, paths[4]: 0.0}
+
+    def failing(p, *a):
+        if p in bad:
+            time.sleep(bad[p])
+            raise WavFormatError(f"{p}: corrupt")
+        return read(p, *a)
+
+    monkeypatch.setattr(module, name, failing)
+    _force_workers(monkeypatch, workers)
+    with pytest.raises(WavFormatError, match="corrupt") as err:
+        analyze_paths(paths, batch=6, blksiz=2048, transport=transport)
+    assert str(err.value) == f"{paths[2]}: corrupt"
+    assert not p_fleet._RING.lock.locked()
+    good = [p for p in paths if p not in bad]
+    res, got = _run_tables(monkeypatch, good, batch=6, blksiz=2048,
+                           transport=transport)
+    _assert_fresh(res, got, want, good)

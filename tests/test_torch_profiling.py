@@ -8,8 +8,9 @@ buffer that ``drain()`` empties.  A CPU ``fleet.analyze_paths`` under each
 transport records one ``fleet.decode`` per file, one ``fleet.stage``,
 ``fleet.pack``, ``fleet.stage_wait``, ``fleet.dispatch`` and
 ``fleet.readback`` per batch, ``packed.unpack`` per packed batch,
-counters whose bytes equal what was shipped, and ``packed.pack_workers``
-once per host pack; on 24-bit WAVs it records a ``pcm24`` ``fleet.pack`` and a
+counters whose bytes equal what was shipped, ``fleet.decode_workers``
+once per batch and ``packed.pack_workers`` once per host pack; on 24-bit
+WAVs it records a ``pcm24`` ``fleet.pack`` and a
 ``pcm24.widen`` per batch and counts the payload in ``fleet.wire_bytes``.
 """
 
@@ -222,8 +223,10 @@ def _catalogue(tmp_path):
     return paths
 
 
-@pytest.mark.parametrize("transport", ["auto", "packed", "pcm16"])
-def test_fleet_records_its_batches(tmp_path, monkeypatch, transport):
+@pytest.mark.parametrize("transport,batch", [
+    pytest.param(t, b, id=t if b == 1 else f"{t}-batch{b}")
+    for b in (1, 2) for t in ("auto", "packed", "pcm16")])
+def test_fleet_records_its_batches(tmp_path, monkeypatch, transport, batch):
     shipped = []
     for mod, name, kind in ((packed, "sweep_peaks_aux_packed", "packed"),
                             (sweep, "sweep_peaks_aux_pcm16", "pcm16")):
@@ -237,8 +240,8 @@ def test_fleet_records_its_batches(tmp_path, monkeypatch, transport):
         monkeypatch.setattr(mod, name, logged)
     paths = _catalogue(tmp_path)
     with recording():
-        fleet.analyze_paths(paths, batch=1, blksiz=2048, transport=transport,
-                            device="cpu")
+        fleet.analyze_paths(paths, batch=batch, blksiz=2048,
+                            transport=transport, device="cpu")
     got = drain()
     spans = [r for r in got if isinstance(r, SpanRecord)]
     counts = [r for r in got if isinstance(r, CountRecord)]
@@ -246,7 +249,9 @@ def test_fleet_records_its_batches(tmp_path, monkeypatch, transport):
     def named(name):
         return [r for r in spans if r.name == name]
 
-    batches = len(paths)
+    # each bucket holds two files: batches of two fill one batch a bucket
+    batches = len(paths) // batch
+    workers = fleet._decode_workers(batch)
     assert len(named("fleet.decode")) == len(paths)
     for name in STAGING + LOOP:
         if name != "fleet.decode":
@@ -254,7 +259,8 @@ def test_fleet_records_its_batches(tmp_path, monkeypatch, transport):
     kinds = [r.attrs["transport"] for r in named("fleet.pack")]
     assert kinds == [k for k, _, _ in shipped]
     if transport == "auto":
-        assert kinds == ["packed", "packed", "pcm16", "pcm16"]
+        assert kinds == ["packed"] * (batches // 2) + ["pcm16"] * (
+            batches // 2)
     else:
         assert kinds == [transport] * batches
     assert len(named("packed.unpack")) == kinds.count("packed")
@@ -267,15 +273,26 @@ def test_fleet_records_its_batches(tmp_path, monkeypatch, transport):
             assert r.thread.startswith("fleet-stage"), r
         else:
             assert r.thread == main, r
+    # a batch of several files decodes on the decode threads, one file
+    # alone on the staging thread
+    stage_threads = {r.thread for r in named("fleet.stage")}
+    decode_threads = {r.thread for r in named("fleet.decode")}
+    if workers > 1:
+        assert all(t.startswith("fleet-stage-decode") for t in
+                   decode_threads), decode_threads
+    else:
+        assert decode_threads == stage_threads
 
     def values(name):
         return [c.n for c in counts if c.name == name]
 
+    assert values("fleet.decode_workers") == [workers] * batches
     assert values("fleet.wire_bytes") == [b for _, b, _ in shipped]
     assert values("fleet.pcm16_bytes") == [n for _, _, n in shipped]
-    # each batch counts its wire, then its pcm16 bytes
+    # each batch counts its decode threads, its wire, then its pcm16 bytes
     assert [c.name for c in counts if c.name.startswith("fleet.")] == [
-        "fleet.wire_bytes", "fleet.pcm16_bytes"] * batches
+        "fleet.decode_workers", "fleet.wire_bytes",
+        "fleet.pcm16_bytes"] * batches
     # every pack, shipped or not, counts its workers once
     assert len(values("packed.pack_workers")) == (
         0 if transport == "pcm16" else batches)
@@ -285,8 +302,9 @@ def test_fleet_records_its_24bit_batches(tmp_path, monkeypatch):
     """A 24-bit fleet: one ``fleet.decode`` per file, per batch a
     ``fleet.pack`` whose ``transport`` is pcm24 and a ``pcm24.widen`` with
     the samples it widened and the batch's files (``device_ms`` on a card
-    only), and ``fleet.wire_bytes`` the staged payload's bytes; no pcm16
-    counter and no pack.  Off, the same call records nothing and makes no
+    only), ``fleet.decode_workers`` the threads that decoded the batch and
+    ``fleet.wire_bytes`` the staged payload's bytes; no pcm16 counter and
+    no pack.  Off, the same call records nothing and makes no
     CUDA event."""
     rng = np.random.default_rng(24)
     paths = []
@@ -326,8 +344,11 @@ def test_fleet_records_its_24bit_batches(tmp_path, monkeypatch):
     assert all("device_ms" not in r.attrs for r in widen)
     assert not named("packed.unpack")
     counts = [(r.name, r.n) for r in got if isinstance(r, CountRecord)]
-    assert counts == [("fleet.wire_bytes", nbytes)
-                      for nbytes, _, _ in staged]
+    assert [files for _, _, files in staged] == [2, 1]
+    assert counts == [c for nbytes, _, files in staged
+                      for c in (("fleet.decode_workers",
+                                 fleet._decode_workers(files)),
+                                ("fleet.wire_bytes", nbytes))]
 
 
 def test_fleet_profile_variable_traces_the_spans(tmp_path, monkeypatch,
@@ -351,7 +372,8 @@ def test_fleet_profile_variable_traces_the_spans(tmp_path, monkeypatch,
     assert [r.attrs["transport"] for r in got
             if r.name == "fleet.pack"] == ["packed"]
     assert [r.name for r in got if isinstance(r, CountRecord)] == [
-        "packed.pack_workers", "fleet.wire_bytes", "fleet.pcm16_bytes"]
+        "fleet.decode_workers", "packed.pack_workers", "fleet.wire_bytes",
+        "fleet.pcm16_bytes"]
 
 
 @pytest.mark.parametrize("workers", [None, 1, 3, "more"])
