@@ -80,7 +80,16 @@ then, on the first CUDA device:
    ``pcm24_widen`` bit-equal on seeded random bytes, the 24-bit extremes
    at both ends of each row, at the 96 kHz catalogue's longest bucket (8
    x 2 x 2^26 frames; ``launches`` the catalogue run's, ``check_launches``
-   this check's);
+   this check's); ``hilbert_32k`` (blksiz 32768) within 1e-5 of its plain
+   twin at 16 x 2^27 samples, the longest bucket's fleet batch of 8 stereo
+   192 kHz songs (the twin on all 16 rows at once, or on as many at a
+   time as its transients fit, ``plain_rows``; its time and the kernel's
+   on that many rows, ``plain_ms`` and ``ms_at_plain_rows``), then three
+   stereo 24-bit 192 kHz WAVs from the seed through
+   ``fleet.analyze_paths`` (``launches`` this run's) and one through the
+   CLI in this process,
+   tables within 1e-4 of the benchmark's float64 reference
+   (``benchmark/reference/offline.py``), angle 0 exact, and its angles;
    the sweep also with the slices of the table that a 3-way and a 4-way
    angle-sharded sweep passes (120 and 90 angles), a random 512-angle
    table and one angle, at both shapes (the kernel's general map,
@@ -771,6 +780,137 @@ def ring_copy_rate(dev, card: str, times: dict) -> None:
           f"{len(ring.slots)} slots of {ring.nbytes} bytes (reserved in "
           f"{reserve_s!r} s), the pinned allocator holding {held_pinned} "
           f"[{card}]")
+
+
+def drive_hires192(tmp, dev, card: str, times: dict, kernels: list) -> None:
+    """blksiz 32768 (176.4 / 192 kHz) on the card: ``hilbert_32k`` held to
+    its plain twin at the longest batch of ``search.cli_192k24.resident32``'s
+    shape with the fleet's batch of 8 (16 rows x 2^27 samples; the twin
+    on as many rows at a time as fit), its kernel entry; then
+    three stereo 24-bit 192 kHz WAVs from the seed through
+    ``fleet.analyze_paths`` and one through the CLI (``cli.main``),
+    tables within the judge's 1e-4 of the benchmark's float64 reference
+    (``benchmark/reference/offline.py``) and its angles."""
+    import torch
+
+    from phaserotate_tpu_torch import fleet as pfleet
+    from phaserotate_tpu_torch.io import write_wav
+    from phaserotate_tpu_torch.kernels import _build
+    from phaserotate_tpu_torch.kernels import hilbert32k as hk
+
+    sys.path.insert(0, os.path.join(REPO, "benchmark"))
+    from reference.offline import peak_table, select_angles
+
+    torch.cuda.empty_cache()
+    rows, n = 16, 4096 * hk.BLKSIZ
+    gen = torch.Generator(device=dev).manual_seed(SEED + 192)
+    x = torch.randn((rows, n), generator=gen, device=dev).mul_(0.25)
+    x.clamp_(-1.0, 1.0).mul_(1 << 23).round_().div_(1 << 23)
+    before = _build.launches["hilbert_32k"]
+    with phase("hilbert_32k_16x2^27", card, times):
+        got = hk.hilbert_32k(x)
+    checks = _build.launches["hilbert_32k"] - before
+    plain_rows = rows
+    while True:  # the twin on as many rows at a time as its transients allow
+        try:
+            err = max(float((got[r : r + plain_rows] - hk.hilbert_32k_plain(
+                x[r : r + plain_rows])).abs().max())
+                for r in range(0, rows, plain_rows))
+            break
+        except torch.OutOfMemoryError:
+            check(plain_rows > 1, "hilbert_32k_plain does not fit one row")
+        plain_rows //= 2  # outside the handler, which holds the transients
+        torch.cuda.empty_cache()
+    print(f"hilbert_32k {rows} x {n}: max err against the plain twin "
+          f"{err!r}; the twin ran on {plain_rows} rows at a time")
+    check(err < 1e-5, f"hilbert_32k vs plain: {err}")
+    del got
+    geo = hk.kernel_geometry(dev)
+    kernel_ms = cuda_ms(lambda: hk.hilbert_32k(x), 3)
+    part = x[:plain_rows]
+    plain_ms = cuda_ms(lambda: hk.hilbert_32k_plain(part), 1)
+    entry = dict(
+        name="hilbert_32k", route="cuda",
+        source="phaserotate_tpu_torch/csrc/hilbert32k.cu", replaces=None,
+        launches=0, check_launches=checks, max_abs_err=err,
+        shape=[rows, n], ms=kernel_ms,
+        plain_ms=plain_ms, plain_rows=plain_rows,
+        ms_at_plain_rows=cuda_ms(lambda: hk.hilbert_32k(part), 3),
+        **bound(4.0 * rows * (n + hk.out_len(n)),
+                fir_conv_flops(rows, n, hk.BLKSIZ, 0)),
+        library_ms=plain_ms, grid_clusters=geo["clusters"],
+        registers=geo["registers"], local_bytes=geo["local_bytes"])
+    kernels.append(entry)
+    print(f"hilbert_32k: {json.dumps(entry)} [{card}]")
+    del x, part
+    torch.cuda.empty_cache()
+
+    rate = 192000
+    rng = np.random.default_rng(SEED + 1920)
+    hires = os.path.join(tmp, "hires192")
+    os.makedirs(hires)
+    paths, ints = [], {}
+    for i, secs in enumerate((6.3, 11.1, 2.7)):  # three buckets
+        x = music_like(rng, 2, int(secs * rate))
+        q = np.rint(x / np.abs(x).max() * 0.95 * (1 << 23))
+        path = os.path.join(hires, f"m{i}.wav")
+        write_wav(path, (q / (1 << 23)).astype(np.float32), rate, bits=24,
+                  float_format=False)
+        paths.append(path)
+        ints[path] = q
+    tables = {}
+    select = pfleet.select_min_peak_angles_batch
+    order = []
+
+    def capture(t, *a, **kw):
+        for row, r0 in zip(t, kw["rot0"]):
+            tables[len(tables)] = (np.array(row), np.array(r0))
+        return select(t, *a, **kw)
+
+    _build.reset_launches()
+    pfleet.select_min_peak_angles_batch = capture
+    try:
+        with phase("fleet_analyze_192k24_3_files", card, times):
+            res = pfleet.analyze_paths(
+                paths, batch=8,
+                progress=lambda p, r, cached: order.append(p))
+    finally:
+        pfleet.select_min_peak_angles_batch = select
+    check(_build.launches["hilbert_32k"] > 0
+          and _build.launches["pcm24_widen"] > 0
+          and _build.launches["hilbert_small"] == 0,
+          f"the 192 kHz fleet run's launches: {dict(_build.launches)}")
+    worst = 0.0
+    for k, path in enumerate(order):
+        table, rot0 = tables[k]
+        ref_table, ref_rot0 = peak_table(
+            torch.from_numpy(ints[path] / (1 << 23)).to(dev), 32768)
+        scale = ref_table.max(axis=-1)
+        gap = max(float((np.abs(table - ref_table).max(axis=-1)
+                         / scale).max()),
+                  float((np.abs(rot0 - ref_rot0) / scale).max()))
+        worst = max(worst, gap)
+        want = select_angles(ref_table[None], ref_rot0[None], 24, False)[0]
+        check(gap < 1e-4, f"{path}: table gap {gap} against the reference")
+        check(np.array_equal(table[:, 0], ref_table[:, 0]),
+              f"{path}: angle 0 is not the exact input peak")
+        check(list(res[path][0].angles_units) == list(want["units"]),
+              f"{path}: angles {res[path][0].angles_units} against the "
+              f"reference's {want['units']}")
+        if path == paths[0]:
+            cli_want = [u / 2 if f else 0.0
+                        for u, f in zip(want["units"], want["found"])]
+    from phaserotate_tpu_torch import cli
+
+    cli_got = analyze_inprocess(cli, paths[0])
+    check(cli_got == cli_want,
+          f"phase-rotate-torch on a 192 kHz file: {cli_got} against the "
+          f"reference's {cli_want}")
+    entry["launches"] = _build.launches["hilbert_32k"]
+    print(f"fleet 192 kHz 24-bit: {len(paths)} files, tables within "
+          f"{worst!r} of the float64 reference (limit 1e-4), angles the "
+          f"reference's; hilbert_32k launches {_build.launches['hilbert_32k']}"
+          f"; the CLI's angles {cli_got} deg [{card}]")
 
 
 def drive_catalogue(tmp, dev, card, times, x4, fleet, stems, stem_degs,
@@ -1662,8 +1802,10 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
     print(f"launches: {json.dumps(launches)}")
     check(rt_rot.device.type == "cuda", "PhaseRotator's default device")
     for name, count in launches.items():
-        # no production caller; the catalogue run drives pcm24_widen
-        if name not in ("fused_rotate_fir", "peak", "pcm24_widen"):
+        # no production caller; the catalogue run drives pcm24_widen, the
+        # 192 kHz run hilbert_32k
+        if name not in ("fused_rotate_fir", "peak", "pcm24_widen",
+                        "hilbert_32k"):
             check(count > 0,
                   f"kernel {name} was not launched by the main path")
     # the ramp: a target that changes every 50 plugin blocks
@@ -2157,6 +2299,7 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
         # 3 bytes read and 4 written a sample, one multiply
         **bound(7 * samples24, samples24), library_ms=None))
     del raw24
+    drive_hires192(tmp, dev, card, times, kernels)
 
     for k in kernels:
         print(f"kernel {k['name']}: {k['ms']!r} ms, plain {k['plain_ms']!r} "

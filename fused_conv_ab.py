@@ -96,6 +96,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -129,6 +130,18 @@ OCCUPANCY = (
      "__launch_bounds__(1024, kCarry == 2 ? 2 : 1)", 1),
 )
 VARIANTS = {"global": GLOBAL_TABLE, "occupancy": OCCUPANCY}
+
+
+def with_headers(src: str) -> str:
+    """``src`` with each ``#include "<header>"`` of ``csrc/`` replaced by
+    the header's text, so that it compiles alone in a temp dir."""
+    csrc = os.path.join(REPO, "phaserotate_tpu_torch", "csrc")
+
+    def text(m):
+        with open(os.path.join(csrc, m.group(1))) as f:
+            return f.read().replace("#pragma once\n", "")
+
+    return re.sub(r'^#include "([\w.]+)"$', text, src, flags=re.M)
 
 
 def variant_source(src: str, edits) -> str:
@@ -661,8 +674,8 @@ def main(argv=None) -> int:
     print(card)
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
-    src = open(os.path.join(REPO, "phaserotate_tpu_torch", "csrc",
-                            "fused_conv.cu")).read()
+    src = with_headers(open(os.path.join(REPO, "phaserotate_tpu_torch",
+                                         "csrc", "fused_conv.cu")).read())
     with open(args.parent) as f:
         parent_src = f.read()
     ptr, i32 = ctypes.c_void_p, ctypes.c_int

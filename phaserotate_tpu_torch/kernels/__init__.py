@@ -8,6 +8,7 @@ from .fused_conv import (
     fused_rotate_fir,
     fused_rotate_fir_plain,
 )
+from .hilbert32k import hilbert_32k, hilbert_32k_plain
 from .pcm24 import pcm24_widen, pcm24_widen_plain
 from .rotate_peak import (
     peak_kernel,
@@ -32,6 +33,8 @@ __all__ = [
     "fused_rotate_fir_plain",
     "fused_stream_mix",
     "fused_stream_mix_plain",
+    "hilbert_32k",
+    "hilbert_32k_plain",
     "hilbert_small",
     "hilbert_small_plain",
     "launches",

@@ -25,8 +25,9 @@ __all__ = ["BUILD_DIR", "build", "check", "count_launch", "launches", "lib",
            "reset_launches"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("fused_conv.cu", "pcm24.cu", "rotate_peak.cu",
+_SOURCES = ("fused_conv.cu", "hilbert32k.cu", "pcm24.cu", "rotate_peak.cu",
             "stream_conv.cu")
+_HEADERS = ("ola_fft.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "phaserotate_tpu_torch"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # compile flags; no --use_fast_math: sincosf must stay full precision
@@ -35,7 +36,7 @@ NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 
 launches = {"rotate_peak_sweep": 0, "hilbert_small": 0, "rotate_small": 0,
             "stream_mix": 0, "fused_hilbert": 0, "fused_rotate_fir": 0,
-            "peak": 0, "pcm24_widen": 0}
+            "peak": 0, "pcm24_widen": 0, "hilbert_32k": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -69,6 +70,14 @@ _SIGNATURES = {
     "prt_fused_conv_grid": (ctypes.c_int, ctypes.c_int, _P),
     # x, n, out, stream
     "prt_peak": (_P, ctypes.c_longlong, _P, _P),
+    # x, its row stride, n, aligned, stage-major twiddles, W_M^p, FIR
+    # spectrum in position order, product twiddles, run tails scratch,
+    # out, rows, frames a row, clusters, stream
+    "prt_hilbert32k": (_P, ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_int, _P, _P, _P, _P, _P, _P, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, _P),
+    # int[5] out: clusters, threads, registers, local bytes, shared bytes
+    "prt_hilbert32k_grid": (_P,),
     # 24-bit payload, out, rows, channels, frames, stream
     "prt_pcm24_widen": (_P, _P, ctypes.c_int, ctypes.c_int,
                         ctypes.c_longlong, _P),
@@ -95,7 +104,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     return BUILD_DIR / f"libprt_torch_{h.hexdigest()[:16]}.so"

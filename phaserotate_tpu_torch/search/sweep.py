@@ -31,12 +31,11 @@ import torch
 
 from ..core.angles import MAXSAMPLE, all_angle_cos_sin, sincos_lut
 from ..core.device import as_f32, resolve_device
-from ..core.fir import offline_fir_spectrum
 from ..core.sizes import OfflineGeometry
+from ..kernels.hilbert32k import hilbert_32k
 from ..kernels.pcm24 import pcm24_widen
 from ..kernels.rotate_peak import rotate_peak_sweep_kernel
 from ..kernels.stream_conv import hilbert_small, small_conv_supported
-from ..ops.convolve import partitioned_convolve
 from ..utils.profiling import span
 
 __all__ = ["sweep_peaks", "sweep_peaks_aux", "sweep_peaks_aux_pcm16",
@@ -59,8 +58,11 @@ def hilbert_offline(x: torch.Tensor, geom: OfflineGeometry) -> torch.Tensor:
 
     Identical arithmetic to PhaseRotateProc::hilbert
     (cli/phase-rotate.cc:181-212).  Every offline parsiz the small kernel
-    can frame (1024..16384) goes through it; blksiz 32768 takes the plain
-    single-partition OLA, as in the JAX package.
+    can frame (1024..16384) goes through it; blksiz 32768 (176.4 and 192
+    kHz) goes through ``kernels.hilbert32k.hilbert_32k``, the plain
+    single-partition OLA on the CPU, under the span
+    ``hilbert.one_partition`` (attributes ``rows``, ``n`` input samples a
+    row and ``n_out``; its device time on a card).
     """
     parsiz = geom.parsiz
     want = (_offline_frames(x, parsiz) + 1) * parsiz
@@ -70,8 +72,10 @@ def hilbert_offline(x: torch.Tensor, geom: OfflineGeometry) -> torch.Tensor:
             # block boundary: the missing tail is exactly zero
             h = _pad_last(h, want - h.shape[-1])
         return h[..., :want]
-    spectra = offline_fir_spectrum(geom, x.device)[None]  # (1, parsiz+1)
-    return partitioned_convolve(x, spectra, parsiz)[..., :want]
+    n = x.shape[-1]
+    with span("hilbert.one_partition", device=x.device,
+              rows=x.numel() // max(n, 1), n=n, n_out=want):
+        return hilbert_32k(x)
 
 
 def aligned_pair(x: torch.Tensor, geom: OfflineGeometry):

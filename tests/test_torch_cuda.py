@@ -228,7 +228,7 @@ def test_launches_counted(x):
     assert _build.launches == {
         "rotate_peak_sweep": 1, "hilbert_small": 1, "rotate_small": 1,
         "stream_mix": 1, "fused_hilbert": 1, "fused_rotate_fir": 1,
-        "peak": 1, "pcm24_widen": 0}
+        "peak": 1, "pcm24_widen": 0, "hilbert_32k": 0}
 
 
 def test_rows_beyond_65535(dev):
@@ -908,3 +908,114 @@ def test_daemon_analysis_on_card_runs_the_kernels(dev, tmp_path):
     empty = cl.analyze(np.zeros((1, 0), np.float32))
     assert empty[0]["found"] is False
     cl.close()
+
+
+# (rows, n): one sample; one block; a row shorter than a block beside
+# ragged ones; the fleet's batch of 8 stereo songs at 192 kHz, short
+HIRES_SHAPES = [(1, 1), (1, 32768), (3, 100003), (16, 250001)]
+
+
+def _hires(dev, rows, n, seed):
+    """(rows, n) float32 on the 24-bit grid: partials and noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 192000.0
+    x = (0.5 * np.sin(2 * np.pi * rng.uniform(100, 5000, (rows, 1)) * t)
+         + 0.1 * rng.standard_normal((rows, n)))
+    q = np.rint(x / np.abs(x).max() * 0.9 * (1 << 23)) / (1 << 23)
+    return torch.from_numpy(q.astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("rows,n", HIRES_SHAPES)
+def test_hilbert_32k_against_plain(dev, rows, n):
+    """The blksiz-32768 kernel against its plain twin (partitioned_convolve
+    on torch.fft) within 1e-5, contiguous and on row views that float4
+    loads cannot take (an odd row stride); one launch each."""
+    from phaserotate_tpu_torch.kernels import hilbert32k as hk
+
+    geo = hk.kernel_geometry(dev)
+    assert geo["clusters"] >= 1 and geo["local_bytes"] == 0, geo
+    x = _hires(dev, rows, n + 1, rows * 7 + n)
+    for xin in (x[:, :n].contiguous(), x[:, 1:]):
+        _build.reset_launches()
+        got = hk.hilbert_32k(xin)
+        assert _build.launches["hilbert_32k"] == 1
+        want = hk.hilbert_32k_plain(xin)
+        assert got.shape == want.shape == (rows, hk.out_len(n))
+        assert (got - want).abs().max().item() < 1e-5
+
+
+@pytest.mark.parametrize("clusters", [1, 2, 5])
+def test_hilbert_32k_any_grid(dev, monkeypatch, clusters):
+    """Any number of clusters gives the plain twin's answer: runs of
+    several frames, runs that cross rows and the fix-up of their first
+    frames (5 rows x 4 frames over 1, 2 and 5 clusters)."""
+    from phaserotate_tpu_torch.kernels import hilbert32k as hk
+
+    monkeypatch.setattr(hk, "kernel_geometry",
+                        lambda device: {"clusters": clusters})
+    x = _hires(dev, 5, 3 * 32768 - 5, clusters)
+    got = hk.hilbert_32k(x)
+    assert (got - hk.hilbert_32k_plain(x)).abs().max().item() < 1e-5
+
+
+def test_hilbert_offline_32k_launches_the_kernel(dev):
+    """hilbert_offline at blksiz 32768 launches hilbert_32k once and
+    hilbert_small never, under a ``hilbert.one_partition`` span with its
+    device ms; at 16384 the other way round."""
+    from phaserotate_tpu_torch.core.sizes import OfflineGeometry
+    from phaserotate_tpu_torch.search.sweep import hilbert_offline
+    from phaserotate_tpu_torch.utils.profiling import drain, recording
+
+    x = _hires(dev, 2, 70001, 5)
+    _build.reset_launches()
+    drain()
+    with recording():
+        h = hilbert_offline(x, OfflineGeometry(32768))
+    (rec,) = drain()
+    assert rec.name == "hilbert.one_partition"
+    assert (rec.attrs["rows"], rec.attrs["n"], rec.attrs["n_out"]) == (
+        2, 70001, 4 * 32768)
+    assert rec.attrs["device_ms"] > 0
+    assert h.shape == (2, 4 * 32768)
+    assert (_build.launches["hilbert_32k"],
+            _build.launches["hilbert_small"]) == (1, 0)
+    hilbert_offline(x, OfflineGeometry(16384))
+    assert (_build.launches["hilbert_32k"],
+            _build.launches["hilbert_small"]) == (1, 1)
+
+
+def test_sweep_192k_on_card_equals_cpu(dev):
+    """sweep_peaks_aux at blksiz 32768 on the card: the input peaks equal
+    the CPU's, the tables and rot0 within 2e-5 (the card's convolution
+    rounds otherwise than the CPU's), and the same chosen angles."""
+    from phaserotate_tpu_torch.core.sizes import offline_geometry
+    from phaserotate_tpu_torch.search import (select_min_peak_angles_batch,
+                                              sweep_peaks_aux)
+
+    geom = offline_geometry(192000)
+    assert geom.blksiz == 32768
+    x = _hires(dev, 4, 400003, 192).reshape(2, 2, -1)
+    _build.reset_launches()
+    card = [t.cpu().numpy() for t in sweep_peaks_aux(x, geom)]
+    assert _build.launches["hilbert_32k"] == 1
+    cpu = [t.numpy() for t in sweep_peaks_aux(x.cpu(), geom)]
+    assert np.array_equal(card[0][..., 0], cpu[0][..., 0])
+    assert np.abs(card[0] - cpu[0]).max() < 2e-5
+    assert np.abs(card[1] - cpu[1]).max() < 2e-5
+    got, want = (select_min_peak_angles_batch(t, stride=24, rot0=r)
+                 for t, r in (card, cpu))
+    assert [g.angles_units for g in got] == [w.angles_units for w in want]
+
+
+def test_apply_angles_32k_on_card_equals_cpu(dev):
+    from phaserotate_tpu_torch.core.sizes import OfflineGeometry
+    from phaserotate_tpu_torch.search import apply_angles
+
+    geom = OfflineGeometry(32768)
+    x = _hires(dev, 2, 150001, 32)
+    _build.reset_launches()
+    y = apply_angles(x, [70, -130], geom)
+    assert _build.launches["hilbert_32k"] == 1
+    want = apply_angles(x.cpu(), [70, -130], geom)
+    assert y.shape == x.shape
+    assert (y.cpu() - want).abs().max().item() < 2e-5

@@ -37,7 +37,17 @@ import torch
 from phaserotate_tpu_torch.kernels import fused_conv as fc
 
 PARSIZ = [2048, 4096, 8192, 16384]
-SRC = Path(fc.__file__).resolve().parent.parent / "csrc" / "fused_conv.cu"
+CSRC = Path(fc.__file__).resolve().parent.parent / "csrc"
+SRC = CSRC / "fused_conv.cu"
+
+
+def kernel_source() -> str:
+    """fused_conv.cu with the ``csrc/`` headers it includes in place, as
+    the compiler reads it (the transform and the product walk live in
+    ``ola_fft.cuh``, shared with hilbert32k.cu)."""
+    return re.sub(r'^#include "([\w.]+)"$',
+                  lambda m: (CSRC / m.group(1)).read_text(),
+                  SRC.read_text(), flags=re.M)
 
 
 def slot(i):
@@ -345,7 +355,7 @@ def wavefronts(items, addr, nbytes):
 
 def test_slot_is_the_kernels_and_a_bijection():
     body = re.search(r"int slot\(int i\) \{\s*return ([^;]+);",
-                     SRC.read_text()).group(1)
+                     kernel_source()).group(1)
     assert body == "i ^ (((i >> 4) & 3) * 5)"
     for parsiz in PARSIZ:
         i = np.arange(parsiz)
@@ -431,7 +441,7 @@ def test_shared_memory_is_conflict_free(parsiz):
 
 
 def test_table_formulas_are_the_kernels():
-    src = SRC.read_text()
+    src = kernel_source()
     assert re.search(r"int pass_offset\(int m, int log2h\) \{\s*"
                      r"return \(m - \(2 << log2h\)\) / 3;", src)
     assert re.search(r"int table_len\(int m\) \{\s*return \(m - 1\) / 3;",

@@ -12,6 +12,8 @@ counters whose bytes equal what was shipped, ``fleet.decode_workers``
 once per batch and ``packed.pack_workers`` once per host pack; on 24-bit
 WAVs it records a ``pcm24`` ``fleet.pack`` and a
 ``pcm24.widen`` per batch and counts the payload in ``fleet.wire_bytes``.
+At blksiz 32768 the Hilbert convolution records
+``hilbert.one_partition``.
 """
 
 import json
@@ -201,6 +203,27 @@ def test_search_select_once_per_call():
     got = drain()
     assert [r.name for r in got] == ["search.select"] * 2
     assert all(r.t0_ns <= r.t1_ns for r in got)
+
+
+def test_hilbert_at_32768_records_one_partition(monkeypatch):
+    """``hilbert_offline`` at blksiz 32768 records one
+    ``hilbert.one_partition`` with ``rows``, ``n`` (input samples a row)
+    and ``n_out`` (no device time on the CPU; on the card
+    ``tests/test_torch_cuda.py``); 16384 records none; off, nothing is
+    recorded and no CUDA event is made."""
+    from phaserotate_tpu_torch.core.sizes import OfflineGeometry
+
+    x = torch.from_numpy(np.random.default_rng(32).uniform(
+        -0.5, 0.5, (1, 2, 40000)).astype(np.float32))
+    with recording():
+        sweep.hilbert_offline(x, OfflineGeometry(32768))
+        sweep.hilbert_offline(x, OfflineGeometry(16384))
+    got = drain()
+    assert [r.name for r in got] == ["hilbert.one_partition"]
+    assert got[0].attrs == dict(rows=2, n=40000, n_out=3 * 32768)
+    monkeypatch.setattr(torch.cuda, "Event", _NoEvent)
+    sweep.hilbert_offline(x, OfflineGeometry(32768))
+    assert drain() == []
 
 
 def _catalogue(tmp_path):
