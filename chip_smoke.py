@@ -1802,10 +1802,10 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
     print(f"launches: {json.dumps(launches)}")
     check(rt_rot.device.type == "cuda", "PhaseRotator's default device")
     for name, count in launches.items():
-        # no production caller; the catalogue run drives pcm24_widen, the
-        # 192 kHz run hilbert_32k
+        # no production caller; the catalogue run drives pcm24_widen and
+        # wire_unpack, the 192 kHz run hilbert_32k
         if name not in ("fused_rotate_fir", "peak", "pcm24_widen",
-                        "hilbert_32k"):
+                        "hilbert_32k", "wire_unpack"):
             check(count > 0,
                   f"kernel {name} was not launched by the main path")
     # the ramp: a target that changes every 50 plugin blocks
@@ -1847,7 +1847,7 @@ def drive(tmp: str, dev, card: str, times: dict) -> int:
                                    stem_degs, geom)
     print(f"launches of the catalogue run: {json.dumps(launches_cat)}")
     for name in ("hilbert_small", "rotate_peak_sweep", "rotate_small",
-                 "rotate_peak_sweep_general", "pcm24_widen"):
+                 "rotate_peak_sweep_general", "pcm24_widen", "wire_unpack"):
         check(launches_cat[name] > 0,
               f"kernel {name} was not launched by the catalogue run")
     general_launches = launches_cat.pop("rotate_peak_sweep_general")

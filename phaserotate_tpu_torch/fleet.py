@@ -15,9 +15,11 @@ The work runs on the CUDA device, one device as in the JAX package;
 without one the command exits with an error unless the CPU is asked for
 (``main(argv, device="cpu")``).
 
-Pipeline per batch: read -> decode straight to int16 PCM
-(io.read_audio_pcm16 — no host floats for 16-bit sources) -> ship
-as int16 or bit-packed to the device -> batched sweep (all 360
+Pipeline per batch: read -> decode straight to int16 PCM (a 16-bit PCM
+WAV's samples read from the file into the batch buffer, io/pcm16.py;
+any other source through io.read_audio_pcm16 — no host floats for
+16-bit sources) -> ship as int16 or bit-packed to the device (unpacked
+there by one kernel, csrc/wire_unpack.cu) -> batched sweep (all 360
 angle-table entries at once) -> vectorized CLI-parity selection.  A
 24-bit integer PCM WAV is read exactly instead (io/pcm24.py: its data
 payload straight into the batch buffer, 3 bytes a sample) and shipped as
@@ -61,8 +63,10 @@ by either package resumes in the other.
 Tracing (utils/profiling): the staging thread (``fleet-stage``) records
 ``fleet.stage`` and ``fleet.pack`` per batch (attribute ``transport``:
 packed, pcm16 or pcm24) and counts ``fleet.decode_workers``, the threads
-that decoded the batch; each file's decode thread (``fleet-stage-decode``,
-or the staging thread) records its ``fleet.decode``; the dispatch
+that decoded the batch, and ``fleet.decode_copied``, its files that took
+``read_audio_pcm16`` (every 16-bit file but a 16-bit PCM WAV); each
+file's decode thread (``fleet-stage-decode``, or the staging thread)
+records its ``fleet.decode``; the dispatch
 loop records ``fleet.stage_wait`` (waiting for the staging thread),
 ``fleet.dispatch`` (transfer, unpack or widen, sweep enqueue) and
 ``fleet.readback``; each batch counts ``fleet.wire_bytes`` and
@@ -77,6 +81,7 @@ kernels.
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import sys
 import threading
@@ -352,7 +357,9 @@ def analyze_paths(
     ``"cpu"`` for the CPU).
     """
     from .io import read_audio_pcm16
+    from .io.pcm16 import read_pcm16_into
     from .io.pcm24 import read_pcm24_into
+    from .io.wav import WavFormatError
     from .search.packed import (
         pack_adaptive,
         pack_residual,
@@ -404,9 +411,17 @@ def analyze_paths(
               and _RING.lock.acquire(blocking=False))
     ring = _RING if shared else _StagingRing()
 
-    def pcm16_into(p: str, rows: np.ndarray) -> int:
+    def pcm16_into(p: str, rows: np.ndarray, copied: List[str]) -> int:
         """The file's int16 samples into ``rows`` (frames, channels);
-        returns the frames written."""
+        returns the frames written.  A 16-bit PCM WAV's go straight from
+        the file into the rows (io/pcm16.py); every other file, which that
+        reader refuses by its header, goes through ``read_audio_pcm16`` and
+        is appended to ``copied``."""
+        try:
+            return read_pcm16_into(p, rows.T)
+        except WavFormatError:
+            pass  # not a 16-bit PCM WAV
+        copied.append(p)
         audio = read_audio_pcm16(p)[0]
         frames = min(audio.shape[1], len(rows))
         rows[:frames] = audio[:, :frames].T
@@ -464,14 +479,17 @@ def analyze_paths(
             _rate, channels, n_pad, bits = key
             pcm, words = _wire_layout(key, len(names), transport)
             slot = ring.take()
+            copied: List[str] = []
             if bits == 24:
                 buf = slot.view(0, (len(names), n_pad, channels, 3),
                                 np.uint8)
                 rows, read = buf, read_pcm24_into
             else:
                 buf = slot.view(0, (len(names), channels, n_pad), np.int16)
-                rows, read = buf.transpose(0, 2, 1), pcm16_into
+                rows = buf.transpose(0, 2, 1)
+                read = functools.partial(pcm16_into, copied=copied)
             count("fleet.decode_workers", decode(names, rows, read))
+            count("fleet.decode_copied", len(copied))
             with span("fleet.pack") as packing:
                 pk = None
                 if bits == 16 and transport != "pcm16":

@@ -24,6 +24,7 @@ from .stream_conv import (
     rotate_small,
     rotate_small_plain,
 )
+from .unpack import wire_unpack, wire_unpack_plain
 
 __all__ = [
     "fused_hilbert",
@@ -47,4 +48,6 @@ __all__ = [
     "rotate_peak_sweep_plain",
     "rotate_small",
     "rotate_small_plain",
+    "wire_unpack",
+    "wire_unpack_plain",
 ]

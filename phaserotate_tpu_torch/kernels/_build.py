@@ -9,7 +9,8 @@ a hash of the sources and flags, so an edited kernel is rebuilt and a
 built one is reused by every later process of the same checkout.  A failed
 build raises with the compiler's output; nothing falls back.
 
-``launches`` counts, per wrapper, the kernel launches made on CUDA tensors.
+``launches`` counts, per wrapper, the kernel launches made on CUDA tensors:
+one a call, or each of a call's kernels where the wrapper says so.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ __all__ = ["BUILD_DIR", "build", "check", "count_launch", "launches", "lib",
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("fused_conv.cu", "hilbert32k.cu", "pcm24.cu", "rotate_peak.cu",
-            "stream_conv.cu")
+            "stream_conv.cu", "wire_unpack.cu")
 _HEADERS = ("ola_fft.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "phaserotate_tpu_torch"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -36,7 +37,8 @@ NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 
 launches = {"rotate_peak_sweep": 0, "hilbert_small": 0, "rotate_small": 0,
             "stream_mix": 0, "fused_hilbert": 0, "fused_rotate_fir": 0,
-            "peak": 0, "pcm24_widen": 0, "hilbert_32k": 0}
+            "peak": 0, "pcm24_widen": 0, "hilbert_32k": 0,
+            "wire_unpack": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -81,6 +83,10 @@ _SIGNATURES = {
     # 24-bit payload, out, rows, channels, frames, stream
     "prt_pcm24_widen": (_P, _P, ctypes.c_int, ctypes.c_int,
                         ctypes.c_longlong, _P),
+    # words, their count, widths, woffs, order, sums scratch, out,
+    # streams, blocks a stream, samples a stream, stream
+    "prt_wire_unpack": (_P, ctypes.c_longlong, _P, _P, _P, _P, _P,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _P),
 }
 
 
@@ -89,8 +95,8 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def count_launch(name: str) -> None:
-    launches[name] += 1
+def count_launch(name: str, kernels: int = 1) -> None:
+    launches[name] += kernels
 
 
 def _nvcc() -> str:

@@ -13,10 +13,12 @@ per sample over the host-to-device link; this transport ships fewer,
               packer csrc/wire_pack.cc, block by block on the host's
               cores; the pack rides the fleet's staging thread, under
               the device pass of the previous batch)
-  device side unpack with shifts and masks (a 2-word gather per sample),
-              reconstruct with ``torch.cumsum`` (the exact inverse of the
-              k-th difference is k prefix sums), dequantize to float32;
-              plain torch, as the JAX package's unpack is plain XLA
+  device side unpack with shifts and masks (a funnel shift of 2 words
+              per sample), reconstruct with k nested prefix sums (the
+              exact inverse of the k-th difference), dequantize to
+              float32: one hand-written kernel over the whole batch on
+              the card (csrc/wire_unpack.cu), where the JAX package's
+              unpack is plain XLA
 
 Reconstruction is bit-exact: residuals of int16 data stay within int32
 at every order <= 3, and each prefix sum of a k-th difference is again
@@ -28,7 +30,7 @@ Why not Rice/arithmetic coding: their decode is bit-serial (unary
 prefixes), which no batch of tensor operations expresses.
 Fixed-width-per-block costs ~1.5-2 bits/sample over the entropy of a
 Gaussian residual (the block max sits ~4 sigma up) — the price of a
-decode that is two gathers and a scan.
+decode that is a funnel shift and a scan.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..kernels.unpack import BLOCK, MAX_ORDER, wire_unpack
 from ..utils.profiling import count, span
 from . import _wirepack
 
@@ -48,18 +51,15 @@ __all__ = ["PackedChunk", "pack_residual", "pack_adaptive",
            "unpack_residual", "sweep_peaks_aux_packed",
            "packed_bits_per_sample", "BLOCK", "MAX_ORDER"]
 
-# Samples per width block.  Must be a multiple of 32 so every block's
-# packed payload is word-aligned (4096 * w bits = 128*w words exactly),
-# which keeps the unpack's bit addressing to one add + shift.
-BLOCK = 4096
-MAX_ORDER = 3
+# BLOCK, samples per width block (defined with MAX_ORDER beside the unpack,
+# kernels/unpack.py), is a multiple of 32 so every block's packed payload
+# is word-aligned (4096 * w bits = 128*w words exactly), which keeps the
+# unpack's bit addressing to one add + shift.
+
 # Padded word counts snap to a geometric grid (5-bit mantissa): at most
 # 1/16 extra wire.  The JAX package pads so to bound its compiled
 # programs; the port compiles nothing but shares the format.
 _GRID_MANTISSA_BITS = 5
-# The unpack walks the streams in groups of about this many samples, so
-# its int32 temporaries stay at a few hundred MB whatever the batch.
-_UNPACK_GROUP_SAMPLES = 1 << 25
 # In a scratch, each array of the wire starts at a multiple of this many
 # int32 words (256 bytes), so its copy on a device is aligned for vector
 # loads.
@@ -339,57 +339,20 @@ def pack_adaptive(x16: np.ndarray, scratch: np.ndarray,
     return _fill(streams, scratch, layout, shape)
 
 
-def _unpack_group(words: torch.Tensor, widths: torch.Tensor,
-                  woffs: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
-    """(g, NB) metadata of g streams -> their (g, NB*BLOCK) int32 PCM."""
-    g, nb = widths.shape
-    w = widths[:, :, None]                               # (g, NB, 1)
-    i_in = torch.arange(BLOCK, dtype=torch.int32, device=words.device)
-    bit = i_in * w                                       # (g, NB, BLOCK)
-    wi = woffs[:, :, None] + (bit >> 5)
-    sh = bit & 31
-    del bit
-    # torch has no logical right shift: shift arithmetically and clear
-    # the sh copies of the sign bit ((-2 << 31) wraps to 0 for sh == 0)
-    v = (words[wi] >> sh) & ~(-2 << (31 - sh))
-    # the straddling word's low bits; 1 slack word is guaranteed by the
-    # pack's grid pad, and for sh == 0 the two shifts clear it entirely
-    v |= (words[wi + 1] << (31 - sh)) << 1
-    del wi, sh
-    s = 32 - w
-    x = ((v << s) >> s).reshape(g, nb * BLOCK)           # sign extend
-    del v
-    out = x
-    for k in range(1, MAX_ORDER + 1):
-        x = torch.cumsum(x, dim=-1, dtype=torch.int32)
-        out = torch.where(order[:, None] == k, x, out)
-    return out
-
-
 def unpack_residual(words: torch.Tensor, widths: torch.Tensor,
                     woffs: torch.Tensor, order: torch.Tensor,
                     n: int) -> torch.Tensor:
     """Inverse of :func:`pack_residual` on the tensors' device.
 
-    (W,) int32 words + (S, NB) metadata -> (S, n) float32 in [-1, 1).
-    Shifts/masks recover each block's fixed-width residuals (two-word
-    straddle gather), then k prefix sums invert the k-th difference.
-    All of it is int32 arithmetic, exact by the argument in the module
-    docstring, on a few streams at a time: beside the float32 result the
-    device holds temporaries of one group only.
+    (W,) int32 words + (S, NB) metadata -> (S, n) float32 in [-1, 1):
+    each block's fixed-width residuals decoded, then k prefix sums invert
+    the k-th difference, exact by the argument in the module docstring.
+    On the card one hand-written kernel (``kernels.unpack.wire_unpack``,
+    csrc/wire_unpack.cu) unpacks the whole batch; on the CPU its plain
+    twin does.  Raises ``TypeError`` unless all four are int32 on one
+    device.
     """
-    for t in (words, widths, woffs, order):
-        if t.dtype != torch.int32 or t.device != words.device:
-            raise TypeError("words, widths, woffs and order must be int32 "
-                            "on one device")
-    S, nb = widths.shape
-    out = torch.empty((S, n), dtype=torch.float32, device=words.device)
-    step = max(1, _UNPACK_GROUP_SAMPLES // max(1, nb * BLOCK))
-    for a in range(0, S, step):
-        x = _unpack_group(words, widths[a : a + step], woffs[a : a + step],
-                          order[a : a + step])
-        out[a : a + step] = x[:, :n].to(torch.float32) * (1.0 / 32768.0)
-    return out
+    return wire_unpack(words, widths, woffs, order, n)
 
 
 def sweep_peaks_aux_packed(pk: PackedChunk, geom, chunk: int = 4096,

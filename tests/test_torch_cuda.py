@@ -225,10 +225,16 @@ def test_launches_counted(x):
     peak_kernel(x[0])
     frames = x[:, : 78 * sc.P].reshape(3, 78, sc.P)
     sc.fused_stream_mix(frames, torch.zeros(3, 78, 2, device=x.device), 3072)
+    from phaserotate_tpu_torch.kernels.unpack import wire_unpack
+    from phaserotate_tpu_torch.search.packed import pack_residual
+
+    pk = pack_residual(_pcm_tones((2, 9000), 3))
+    wire_unpack(*(torch.from_numpy(np.ascontiguousarray(a)).to(x.device)
+                  for a in pk.arrays()), pk.n)
     assert _build.launches == {
         "rotate_peak_sweep": 1, "hilbert_small": 1, "rotate_small": 1,
         "stream_mix": 1, "fused_hilbert": 1, "fused_rotate_fir": 1,
-        "peak": 1, "pcm24_widen": 0, "hilbert_32k": 0}
+        "peak": 1, "pcm24_widen": 0, "hilbert_32k": 0, "wire_unpack": 3}
 
 
 def test_rows_beyond_65535(dev):
@@ -509,10 +515,10 @@ def _pcm_tones(shape, seed):
 
 
 @pytest.mark.parametrize("shape", [(3, 2, 50001), (2, 4096), (5, 31)])
-def test_unpack_on_card_equals_the_cpu_unpack(dev, shape, monkeypatch):
-    """The int32 shifts, masks and prefix sums give the same samples on
-    the card as on the CPU, whole and in groups of streams; the packed
-    sweep equals the pcm16 sweep bit for bit."""
+def test_unpack_on_card_equals_the_cpu_unpack(dev, shape):
+    """The kernel gives the samples of the CPU unpack, whole and on the
+    metadata of groups of streams; the packed sweep equals the pcm16 sweep
+    bit for bit."""
     from phaserotate_tpu_torch.core.sizes import OfflineGeometry
     from phaserotate_tpu_torch.search import packed
     from phaserotate_tpu_torch.search.sweep import sweep_peaks_aux_pcm16
@@ -526,16 +532,142 @@ def test_unpack_on_card_equals_the_cpu_unpack(dev, shape, monkeypatch):
     want = packed.unpack_residual(*map(torch.from_numpy, parts), pk.n)
     assert np.array_equal(want.numpy().reshape(shape),
                           x16.astype(np.float32) / 32768.0)
-    for group in (1 << 25, packed.BLOCK):
-        monkeypatch.setattr(packed, "_UNPACK_GROUP_SAMPLES", group)
-        got = packed.unpack_residual(
-            *(torch.from_numpy(a).to(dev) for a in parts), pk.n)
-        assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    words = torch.from_numpy(parts[0]).to(dev)
+    S = parts[1].shape[0]
+    for step in (S, 1, 2):
+        for a in range(0, S, step):
+            got = packed.unpack_residual(
+                words, *(torch.from_numpy(m[a : a + step]).to(dev)
+                         for m in parts[1:]), pk.n)
+            assert got.device.type == "cuda"
+            assert torch.equal(got.cpu(), want[a : a + step])
     geom = OfflineGeometry(1024)
     t_pk, r_pk = packed.sweep_peaks_aux_packed(pk, geom)
     t_16, r_16 = sweep_peaks_aux_pcm16(x16, geom)
     assert t_pk.device.type == "cuda"
     assert torch.equal(t_pk, t_16) and torch.equal(r_pk, r_16)
+
+
+WIRE_LENGTHS = (1, 31, 4096, 1100 * 4096 - 3)
+WIRE_CASES = (["orders"] + [f"len{n}" for n in WIRE_LENGTHS]
+              + [f"adversarial{seed}" for seed in range(3)])
+
+
+def _wire_case(name):
+    """(words, widths, woffs, order, n): packer-made wires (orders 0-3,
+    one and many blocks a stream, odd lengths, more blocks a stream than
+    the carries' scan has threads) and adversarial ones (random words
+    under every width 1-32, offsets anywhere in the words: unaligned,
+    overlapping, out of order; an order outside 0-3)."""
+    from phaserotate_tpu_torch.search import packed
+
+    if name == "orders":
+        rng = np.random.default_rng(31)
+        n = 3 * packed.BLOCK + 17
+        t = np.arange(n)
+        streams = np.stack([
+            rng.integers(-32768, 32768, n),
+            np.clip(np.cumsum(rng.integers(-20, 21, n)), -32768, 32767),
+            np.rint(30000 * np.sin(0.002 * t)),
+            np.rint(30000 * np.sin(0.02 * t)),
+            np.where(t % 2 == 0, -32768, 32767), np.zeros(n)]).astype(np.int16)
+        return packed.pack_residual(streams).arrays() + (n,)
+    if name.startswith("len"):
+        n = int(name[3:])
+        return packed.pack_residual(_pcm_tones((2, n), n % 97)).arrays() + (n,)
+    seed = int(name[len("adversarial"):])
+    r = np.random.default_rng(seed)
+    S, nb = 5, 9
+    widths = r.integers(1, 33, (S, nb)).astype(np.int32)
+    widths.flat[:32] = np.arange(1, 33)
+    W = 40 * 128 * 32
+    words = r.integers(-2**31, 2**31, W, dtype=np.int64).astype(np.int32)
+    woffs = r.integers(0, W - 128 * widths - 1).astype(np.int32)
+    if seed == 1:
+        woffs -= woffs % 4  # 16-byte aligned blocks: the vector loads
+    order = np.array([0, 1, 2, 3, 9], np.int32)
+    return words, widths, woffs, order, nb * packed.BLOCK - 1000 * seed
+
+
+@pytest.mark.parametrize("name", WIRE_CASES)
+def test_wire_unpack_bit_equal(dev, name):
+    """The kernel against its plain twin on the CPU, bit for bit, in
+    three launches; the words at an offset of 4 bytes too (the 4-byte
+    loads)."""
+    from phaserotate_tpu_torch.kernels.unpack import (wire_unpack,
+                                                      wire_unpack_plain)
+
+    *arrays, n = _wire_case(name)
+    cpu = [torch.from_numpy(np.ascontiguousarray(a, np.int32))
+           for a in arrays]
+    want = wire_unpack_plain(*cpu, n)
+    card = [a.to(dev) for a in cpu]
+    _build.reset_launches()
+    got = wire_unpack(*card, n)
+    assert _build.launches["wire_unpack"] == 3
+    assert torch.equal(got.cpu(), want)
+    shifted = torch.zeros(card[0].numel() + 1, dtype=torch.int32,
+                          device=dev)
+    shifted[1:] = card[0]
+    got = wire_unpack(shifted[1:], *card[1:], n)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+def test_fleet_16bit_on_card_equals_the_cpu(dev, tmp_path):
+    """A 16-bit catalogue through ``auto`` and ``packed`` on the card: the
+    16-bit WAV reader into pinned slots, the unpack kernel (three launches
+    a packed batch, none on the CPU), tables and ``rot0`` equal to the CPU
+    run's (peaks bit-equal: the same samples), selections equal."""
+    from phaserotate_tpu_torch import fleet
+    from phaserotate_tpu_torch.utils.profiling import (CountRecord, drain,
+                                                       recording)
+
+    paths = []
+    for i in range(5):
+        p = str(tmp_path / f"w{i}.wav")
+        x = _pcm_tones((2, 150000 - 20000 * i), 80 + i) / 32768.0
+        write_wav(p, x.astype(np.float32), 48000, bits=16,
+                  float_format=False)
+        paths.append(p)
+    select = fleet.select_min_peak_angles_batch
+    for transport in ("auto", "packed"):
+        runs = {}
+        for where in ("cuda", "cpu"):
+            rows = []
+
+            def capture(t, *a, _rows=rows, **kw):
+                _rows.extend(zip(np.array(t), np.array(kw["rot0"])))
+                return select(t, *a, **kw)
+
+            fleet.select_min_peak_angles_batch = capture
+            try:
+                _build.reset_launches()
+                drain()
+                with recording():
+                    res = fleet.analyze_paths(paths, batch=3,
+                                              transport=transport,
+                                              device=where)
+                records = drain()
+            finally:
+                fleet.select_min_peak_angles_batch = select
+            kinds = [r.attrs["transport"] for r in records
+                     if r.name == "fleet.pack"]
+            copied = [r.n for r in records if isinstance(r, CountRecord)
+                      and r.name == "fleet.decode_copied"]
+            assert copied == [0] * len(kinds)
+            assert _build.launches["wire_unpack"] == (
+                3 * kinds.count("packed") if where == "cuda" else 0)
+            runs[where] = (res, rows, kinds)
+        (c_res, c_rows, c_kinds), (p_res, p_rows, p_kinds) = (
+            runs["cuda"], runs["cpu"])
+        assert c_kinds == p_kinds and "packed" in c_kinds
+        for (ct, cr), (pt, pr) in zip(c_rows, p_rows):
+            assert np.array_equal(ct[:, 0], pt[:, 0])
+            assert np.abs(ct - pt).max() < 2e-5
+            assert np.abs(cr - pr).max() < 2e-5
+        for p in paths:
+            assert c_res[p][0].angles_units == p_res[p][0].angles_units
 
 
 def test_mesh_of_the_card_four_times_over(dev):

@@ -616,22 +616,23 @@ def test_fleet_decode_threads_raise_the_first_failed_file(
     ring's lock is released, and the next call of the process, on the
     good files, succeeds with the fresh per-file tables."""
     from phaserotate_tpu_torch import io as p_io
-    from phaserotate_tpu_torch.io import WavFormatError, pcm24
+    from phaserotate_tpu_torch.io import WavFormatError, pcm16, pcm24
 
     paths, transport, want = _decode_case(
         tmp_path, "pcm24" if bits == 24 else "pcm16")
-    module, name = ((pcm24, "read_pcm24_into") if bits == 24
-                    else (p_io, "read_audio_pcm16"))
-    read = getattr(module, name)
+    # at 16 bits a file the WAV reader refuses goes to the copied reader,
+    # which then fails too, as both do on a corrupt file
+    readers = ([(pcm24, "read_pcm24_into")] if bits == 24
+               else [(pcm16, "read_pcm16_into"), (p_io, "read_audio_pcm16")])
     bad = {paths[2]: 0.3, paths[4]: 0.0}
+    for module, name in readers:
+        def failing(p, *a, _read=getattr(module, name)):
+            if p in bad:
+                time.sleep(bad[p])
+                raise WavFormatError(f"{p}: corrupt")
+            return _read(p, *a)
 
-    def failing(p, *a):
-        if p in bad:
-            time.sleep(bad[p])
-            raise WavFormatError(f"{p}: corrupt")
-        return read(p, *a)
-
-    monkeypatch.setattr(module, name, failing)
+        monkeypatch.setattr(module, name, failing)
     _force_workers(monkeypatch, workers)
     with pytest.raises(WavFormatError, match="corrupt") as err:
         analyze_paths(paths, batch=6, blksiz=2048, transport=transport)
@@ -641,3 +642,49 @@ def test_fleet_decode_threads_raise_the_first_failed_file(
     res, got = _run_tables(monkeypatch, good, batch=6, blksiz=2048,
                            transport=transport)
     _assert_fresh(res, got, want, good)
+
+
+def _copied_reader_only(monkeypatch):
+    """Make the fleet read every 16-bit file as it did before
+    ``io/pcm16.py``: the WAV reader refuses them all, so each takes
+    ``read_audio_pcm16``."""
+    from phaserotate_tpu_torch.io import WavFormatError, pcm16
+
+    def refuse(p, rows):
+        raise WavFormatError(f"{p}: read with the copied reader")
+
+    monkeypatch.setattr(pcm16, "read_pcm16_into", refuse)
+
+
+@pytest.mark.parametrize("workers", [1, 3, 7])
+@pytest.mark.parametrize("transport", ["auto", "packed", "pcm16"])
+def test_fleet_wav_reader_equals_the_copied_reader(tmp_path, monkeypatch,
+                                                   transport, workers):
+    """16-bit WAVs read straight into the slot give the tables, ``rot0``
+    and selections of the copied reader, bit for bit, on every transport
+    and decode thread count; ``fleet.decode_copied`` counts no file, and
+    every file under the copied reader.  Batches of two put the quiet
+    short pair in rows the loud pair filled, so the tables also show that
+    no stale sample is left in a pad."""
+    from phaserotate_tpu_torch.utils.profiling import (CountRecord, drain,
+                                                       recording)
+
+    paths = _mk_ring(tmp_path) + _mk_stereo(tmp_path)
+    want = _fresh_tables(paths, 2048)
+    _force_workers(monkeypatch, workers)
+    runs = {}
+    for reader in ("wav", "copied"):
+        if reader == "copied":
+            _copied_reader_only(monkeypatch)
+        drain()
+        with recording():
+            runs[reader] = _run_tables(monkeypatch, paths, batch=2,
+                                       blksiz=2048, transport=transport)
+        copied = [r.n for r in drain() if isinstance(r, CountRecord)
+                  and r.name == "fleet.decode_copied"]
+        assert sum(copied) == (0 if reader == "wav" else len(paths))
+    (res, got), (c_res, c_got) = runs["wav"], runs["copied"]
+    assert list(got) == list(c_got)
+    _assert_fresh(res, got, want, paths)
+    _assert_fresh(c_res, c_got, want, paths)
+    _assert_same_results(res, c_res, paths, exact=True)

@@ -318,14 +318,21 @@ def test_host_cases_are_what_they_say(k):
 
 
 @pytest.mark.parametrize("group", [BLOCK, 3 * BLOCK, 1 << 25])
-def test_unpack_group_size_does_not_change_the_result(monkeypatch, group):
-    """The unpack walks the streams a few at a time; any group size gives
-    the same samples."""
-    monkeypatch.setattr(p_packed, "_UNPACK_GROUP_SAMPLES", group)
+def test_unpack_group_size_does_not_change_the_result(group):
+    """The streams unpack independently: the metadata of any group of
+    streams of about ``group`` samples, over the whole words, gives those
+    streams' samples."""
     for name in ("random", "mixed_orders"):
         x = _case(name)
-        np.testing.assert_array_equal(_unpack_port(pack_residual(x)),
-                                      _as_f32(x))
+        pk = pack_residual(x)
+        whole = _unpack_port(pk).reshape(-1, pk.n)
+        words = torch.from_numpy(np.ascontiguousarray(pk.words))
+        step = max(1, group // (pk.widths.shape[1] * BLOCK))
+        for a in range(0, pk.widths.shape[0], step):
+            got = unpack_residual(
+                words, *(torch.from_numpy(m[a : a + step])
+                         for m in (pk.widths, pk.woffs, pk.order)), pk.n)
+            np.testing.assert_array_equal(got.numpy(), whole[a : a + step])
 
 
 def test_unpack_rejects_other_dtypes():
@@ -495,3 +502,276 @@ def test_pack_adaptive_into_a_reused_scratch(monkeypatch, workers):
         if got is not None:
             assert got.words.base is scratch
             _assert_same_chunk(got, want)
+
+
+# A numpy emulation of csrc/wire_unpack.cu's decomposition, held bit for
+# bit to the plain twin (kernels/unpack.py wire_unpack_plain): each
+# block's words staged at thread t's pitch (w | 1) through the kernel's
+# division by multiplication, 32 residuals a thread by funnel shifts, the
+# thread's nested sums, the block's scan of its 128 threads (warp
+# shuffles, then the four warps' totals), each stream's scan of its
+# blocks' sums on 1024 threads, and the carries applied, all in wrapping
+# uint32.  Edit it with any change to the kernel's maps or sums.
+
+_THREADS, _PER, _SCAN_THREADS = 128, 32, 1024
+_ZERO = np.zeros((), np.uint32)
+
+
+def _u32(v):
+    return np.asarray(v, np.uint32)
+
+
+def _tri(l):
+    """l (l + 1) / 2 mod 2^32, halving the even factor first."""
+    l = _u32(l)
+    with np.errstate(over="ignore"):
+        return np.where(l & 1, l * ((l + 1) >> 1), (l >> 1) * (l + 1))
+
+
+def _combine(p, q):
+    """The kernel's ``combine``: p's segment, then q's, as (l, a1, a2,
+    a3) uint32 arrays."""
+    pl, p1, p2, p3 = p
+    ql, q1, q2, q3 = q
+    with np.errstate(over="ignore"):  # uint32 wraps, as on the card
+        return (pl + ql, p1 + q1, p2 + ql * p1 + q2,
+                p3 + ql * p2 + _tri(ql) * p1 + q3)
+
+
+def _identity(shape):
+    return tuple(np.zeros(shape, np.uint32) for _ in range(4))
+
+
+def _warp_inclusive(e):
+    """Hillis-Steele over the last axis (32 lanes), as the shuffles."""
+    e = tuple(a.copy() for a in e)
+    for d in (1, 2, 4, 8, 16):
+        up = _combine(tuple(a[..., :-d] for a in e),
+                      tuple(a[..., d:] for a in e))
+        for a, u in zip(e, up):
+            a[..., d:] = u
+    return e
+
+
+def _exclusive(e, warps):
+    """What precedes each thread of (..., warps * 32) summaries: the
+    kernel's ``block_exclusive`` (and the carries kernel's first half)."""
+    lead = e[0].shape[:-1]
+    e = tuple(a.reshape(*lead, warps, 32) for a in e)
+    inc = _warp_inclusive(e)
+    excl = tuple(np.concatenate([np.zeros((*lead, warps, 1), np.uint32),
+                                 a[..., :-1]], axis=-1) for a in inc)
+    totals = tuple(a[..., -1] for a in inc)             # (..., warps)
+    pre = _identity((*lead, 1))
+    pres = []
+    for q in range(warps):
+        pres.append(pre)
+        pre = _combine(pre, tuple(a[..., q : q + 1] for a in totals))
+    pre = tuple(np.concatenate([p[k] for p in pres], axis=-1)[..., None]
+                for k in range(4))
+    out = _combine(tuple(np.broadcast_to(a, excl[0].shape) for a in pre),
+                   excl)
+    return tuple(a.reshape(*lead, warps * 32) for a in out)
+
+
+def _emulate_decode(words, w, off):
+    """One block's (128, 32) int32 residuals, as the kernel stages and
+    shifts them."""
+    n_words = words.size
+    w = int(min(max(w, 1), 32))
+    pitch, total = w | 1, _THREADS * w
+    magic = ((1 << 32) + w - 1) // w
+    sm = np.zeros(_THREADS * 33 + 1, np.uint64)
+    g = np.arange(total, dtype=np.uint64)
+    t = (g * np.uint64(magic)) >> np.uint64(32)
+    assert np.array_equal(t, g // np.uint64(w))
+    at = off + g.astype(np.int64)
+    ok = (at >= 0) & (at < n_words)
+    sm[(t * np.uint64(pitch) + g - t * np.uint64(w)).astype(np.int64)] = (
+        np.where(ok, words.view(np.uint32)[np.clip(at, 0, n_words - 1)], 0))
+    j = np.arange(_PER, dtype=np.uint64)
+    bit = j * np.uint64(w)
+    k = (np.arange(_THREADS, dtype=np.uint64)[:, None] * np.uint64(pitch)
+         + (bit >> np.uint64(5))).astype(np.int64)
+    pair = sm[k] | (sm[k + 1] << np.uint64(32))
+    v = (pair >> (bit & np.uint64(31))) & np.uint64(0xFFFFFFFF)
+    cut = np.uint64(32 - w)
+    v = ((v << cut) & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    return (v.view(np.int32) >> np.int32(32 - w)).view(np.uint32)
+
+
+def _emulate_wire_unpack(words, widths, woffs, order, n):
+    """csrc/wire_unpack.cu's three launches in numpy: (S, n) float32."""
+    words = np.ascontiguousarray(words, np.int32)
+    S, nb = widths.shape
+    scan = (order >= 1) & (order <= 3)
+    res = np.empty((S, nb, _THREADS, _PER), np.uint32)
+    for s in range(S):
+        for b in range(nb):
+            res[s, b] = _emulate_decode(words, widths[s, b], woffs[s, b])
+    # thread sums from zero: (l, L1, L2, L3) at the thread's end
+    l1 = np.cumsum(res, axis=-1, dtype=np.uint32)
+    l2 = np.cumsum(l1, axis=-1, dtype=np.uint32)
+    l3 = np.cumsum(l2, axis=-1, dtype=np.uint32)
+    own = (np.full((S, nb, _THREADS), _PER, np.uint32), l1[..., -1],
+           l2[..., -1], l3[..., -1])
+    pre = _exclusive(own, _THREADS // 32)                # (S, nb, 128)
+    # launch 1: the block's sums, the last thread's prefix and its own
+    block = _combine(tuple(a[..., -1] for a in pre),
+                     tuple(a[..., -1] for a in own))     # (S, nb)
+    # launch 2: each stream's blocks on 1024 threads, `per` a thread
+    per = -(-nb // _SCAN_THREADS)
+    carries = np.zeros((S, nb, 3), np.uint32)
+    for s in range(S):
+        if not scan[s]:
+            continue
+        item = lambda j: (_u32(BLOCK), block[1][s, j], block[2][s, j],
+                          block[3][s, j])
+        mine = _identity(_SCAN_THREADS)
+        for t in range(_SCAN_THREADS):
+            m = _identity(())
+            for j in range(min(nb, t * per), min(nb, t * per + per)):
+                m = _combine(m, item(j))
+            for a, v in zip(mine, m):
+                a[t] = v
+        tpre = _exclusive(mine, _SCAN_THREADS // 32)
+        for t in range(_SCAN_THREADS):
+            c = tuple(a[t] for a in tpre)
+            for j in range(min(nb, t * per), min(nb, t * per + per)):
+                carries[s, j] = c[1:]
+                c = _combine(c, item(j))
+    # launch 3: the block's carries, then the thread's prefix, then the
+    # thread's own nested sums from there
+    c = _combine((_ZERO, carries[..., 0, None], carries[..., 1, None],
+                  carries[..., 2, None]), pre)
+    y1 = c[1][..., None] + l1
+    y2 = c[2][..., None] + np.cumsum(y1, axis=-1, dtype=np.uint32)
+    y3 = c[3][..., None] + np.cumsum(y2, axis=-1, dtype=np.uint32)
+    o = order[:, None, None, None]
+    v = np.where(o == 1, y1, np.where(o == 2, y2, np.where(o == 3, y3, res)))
+    v = v.reshape(S, nb * BLOCK)[:, :n].view(np.int32)
+    return v.astype(np.float32) * np.float32(1.0 / 32768.0)
+
+
+def _twin(words, widths, woffs, order, n):
+    from phaserotate_tpu_torch.kernels.unpack import wire_unpack_plain
+
+    return wire_unpack_plain(
+        *(torch.from_numpy(np.ascontiguousarray(a, np.int32))
+          for a in (words, widths, woffs, order)), n).numpy()
+
+
+def _forced_order_wire(x16, orders):
+    """The wire of (S, n) int16 ``x16`` with stream s at ``orders[s]``,
+    whatever the packer would pick: its k-th difference, each block at
+    its minimal width, blocks in (stream, block) order, one slack word."""
+    S, n = x16.shape
+    nb = -(-n // BLOCK)
+    streams = np.pad(x16.astype(np.int32), ((0, 0), (0, nb * BLOCK - n)))
+    resid = np.empty_like(streams)
+    for s, k in enumerate(orders):
+        r = streams[s]
+        for _ in range(k):
+            r = np.diff(r, prepend=0)
+        resid[s] = r
+    blocks = resid.reshape(S * nb, BLOCK)
+    widths = p_packed._signed_width(blocks.max(-1), blocks.min(-1))
+    parts = [p_packed._pack_fixed_width(blocks[i : i + 1], int(widths[i]))[0]
+             for i in range(S * nb)]
+    woffs = np.cumsum([0] + [p.size for p in parts[:-1]]).astype(np.int32)
+    words = np.concatenate(parts + [np.zeros(1, np.int32)])
+    return (words, widths.reshape(S, nb), woffs.reshape(S, nb),
+            np.asarray(orders, np.int32), n)
+
+
+def _square(n, period):
+    return np.where(np.arange(n) % period < period // 2, 32767,
+                    -32768).astype(np.int16)
+
+
+def _alternating(n):
+    return np.where(np.arange(n) % 2 == 0, -32768, 32767).astype(np.int16)
+
+
+EMULATED = ["random", "mixed_orders", "batch_of_orders", "nyquist_square",
+            "impulses", "silence", "len1", "len31", f"len{BLOCK}",
+            f"len{2 * BLOCK + 333}", "one_stream"]
+
+
+@pytest.mark.parametrize("name", EMULATED)
+def test_kernel_emulation_equals_the_twin_on_packed_wires(name):
+    """Packer-made wires: orders 0-3, one-block and many-block streams,
+    lengths that are no multiple of 4096."""
+    pk = pack_residual(_case(name))
+    wire = (pk.words, pk.widths, pk.woffs, pk.order, pk.n)
+    got = _emulate_wire_unpack(*wire)
+    want = _twin(*wire)
+    assert np.array_equal(got, want)
+    np.testing.assert_array_equal(got.reshape(pk.shape), _as_f32(_case(name)))
+
+
+@pytest.mark.parametrize("signal", ["square", "alternating", "impulses"])
+@pytest.mark.parametrize("order", [0, 1, 2, 3])
+def test_kernel_emulation_on_the_widest_residuals(signal, order):
+    """Full-scale square and alternating -32768/32767 signals forced to
+    each order: order 3 ships residuals of up to 262,140 in magnitude (19
+    bits), the widest an int16 signal gives."""
+    n = 2 * BLOCK + 77
+    x = {"square": _square(n, 6), "alternating": _alternating(n),
+         "impulses": _impulses()[:n]}[signal]
+    x16 = np.stack([x, -x - 1, x[::-1].copy()])
+    wire = _forced_order_wire(x16, [order] * 3)
+    if order == 3 and signal == "alternating":
+        assert wire[1].max() == 19
+    got = _emulate_wire_unpack(*wire)
+    assert np.array_equal(got, _twin(*wire))
+    np.testing.assert_array_equal(got, _as_f32(x16))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_kernel_emulation_on_adversarial_wires(seed):
+    """Random words under every width 1-32, offsets anywhere inside the
+    words (unaligned, overlapping, out of order), orders 0-3 and one
+    outside them (which ships the residuals): the int32 wrap of the
+    twin's cumsums is the kernel's uint32 wrap."""
+    rng = np.random.default_rng(seed)
+    S, nb = 5, 9
+    n = nb * BLOCK - int(rng.integers(0, BLOCK))
+    widths = rng.integers(1, 33, (S, nb)).astype(np.int32)
+    widths.flat[:32] = np.arange(1, 33)
+    W = 40 * 128 * 32
+    words = rng.integers(-2**31, 2**31, W, dtype=np.int64).astype(np.int32)
+    woffs = rng.integers(0, W - 128 * widths - 1).astype(np.int32)
+    order = np.array([0, 1, 2, 3, 9], np.int32)
+    got = _emulate_wire_unpack(words, widths, woffs, order, n)
+    assert np.array_equal(got, _twin(words, widths, woffs, order, n))
+
+
+def test_kernel_emulation_with_more_blocks_than_scan_threads():
+    """A stream of 1,100 blocks: the carries' scan takes two blocks a
+    thread on some threads."""
+    rng = np.random.default_rng(4)
+    n = 1100 * BLOCK - 5
+    x16 = np.cumsum(rng.integers(-3, 4, (2, n)), axis=-1).clip(
+        -32768, 32767).astype(np.int16)
+    wire = _forced_order_wire(x16, [3, 2])
+    got = _emulate_wire_unpack(*wire)
+    assert np.array_equal(got, _twin(*wire))
+    np.testing.assert_array_equal(got, _as_f32(x16))
+
+
+def test_kernel_division_by_multiplication():
+    """The staging's g / w as a multiply-high, for every word index of a
+    block and every width."""
+    g = np.arange(128 * 32, dtype=np.uint64)
+    for w in range(1, 33):
+        magic = np.uint64(((1 << 32) + w - 1) // w)
+        assert np.array_equal((g * magic) >> np.uint64(32), g // np.uint64(w))
+
+
+def test_unpack_block_is_the_format_block():
+    """The kernel's block is the format's (and the JAX package's)."""
+    assert (BLOCK, p_packed.MAX_ORDER) == (j_packed.BLOCK, j_packed.MAX_ORDER)
+    src = (p_packed.__file__.rsplit("/search/", 1)[0]
+           + "/csrc/wire_unpack.cu")
+    assert f"kBlock = {BLOCK};" in open(src).read()

@@ -9,7 +9,8 @@ transport records one ``fleet.decode`` per file, one ``fleet.stage``,
 ``fleet.pack``, ``fleet.stage_wait``, ``fleet.dispatch`` and
 ``fleet.readback`` per batch, ``packed.unpack`` per packed batch,
 counters whose bytes equal what was shipped, ``fleet.decode_workers``
-once per batch and ``packed.pack_workers`` once per host pack; on 24-bit
+and ``fleet.decode_copied`` once per batch and ``packed.pack_workers``
+once per host pack; on 24-bit
 WAVs it records a ``pcm24`` ``fleet.pack`` and a
 ``pcm24.widen`` per batch and counts the payload in ``fleet.wire_bytes``.
 At blksiz 32768 the Hilbert convolution records
@@ -310,11 +311,14 @@ def test_fleet_records_its_batches(tmp_path, monkeypatch, transport, batch):
         return [c.n for c in counts if c.name == name]
 
     assert values("fleet.decode_workers") == [workers] * batches
+    # every file is a 16-bit PCM WAV: none takes the copied reader
+    assert values("fleet.decode_copied") == [0] * batches
     assert values("fleet.wire_bytes") == [b for _, b, _ in shipped]
     assert values("fleet.pcm16_bytes") == [n for _, _, n in shipped]
-    # each batch counts its decode threads, its wire, then its pcm16 bytes
+    # each batch counts its decode threads, its copied files, its wire,
+    # then its pcm16 bytes
     assert [c.name for c in counts if c.name.startswith("fleet.")] == [
-        "fleet.decode_workers", "fleet.wire_bytes",
+        "fleet.decode_workers", "fleet.decode_copied", "fleet.wire_bytes",
         "fleet.pcm16_bytes"] * batches
     # every pack, shipped or not, counts its workers once
     assert len(values("packed.pack_workers")) == (
@@ -325,8 +329,9 @@ def test_fleet_records_its_24bit_batches(tmp_path, monkeypatch):
     """A 24-bit fleet: one ``fleet.decode`` per file, per batch a
     ``fleet.pack`` whose ``transport`` is pcm24 and a ``pcm24.widen`` with
     the samples it widened and the batch's files (``device_ms`` on a card
-    only), ``fleet.decode_workers`` the threads that decoded the batch and
-    ``fleet.wire_bytes`` the staged payload's bytes; no pcm16 counter and
+    only), ``fleet.decode_workers`` the threads that decoded the batch,
+    ``fleet.decode_copied`` 0 and ``fleet.wire_bytes`` the staged
+    payload's bytes; no pcm16 counter and
     no pack.  Off, the same call records nothing and makes no
     CUDA event."""
     rng = np.random.default_rng(24)
@@ -371,6 +376,7 @@ def test_fleet_records_its_24bit_batches(tmp_path, monkeypatch):
     assert counts == [c for nbytes, _, files in staged
                       for c in (("fleet.decode_workers",
                                  fleet._decode_workers(files)),
+                                ("fleet.decode_copied", 0),
                                 ("fleet.wire_bytes", nbytes))]
 
 
@@ -395,8 +401,8 @@ def test_fleet_profile_variable_traces_the_spans(tmp_path, monkeypatch,
     assert [r.attrs["transport"] for r in got
             if r.name == "fleet.pack"] == ["packed"]
     assert [r.name for r in got if isinstance(r, CountRecord)] == [
-        "fleet.decode_workers", "packed.pack_workers", "fleet.wire_bytes",
-        "fleet.pcm16_bytes"]
+        "fleet.decode_workers", "fleet.decode_copied", "packed.pack_workers",
+        "fleet.wire_bytes", "fleet.pcm16_bytes"]
 
 
 @pytest.mark.parametrize("workers", [None, 1, 3, "more"])
